@@ -1,0 +1,366 @@
+"""Coverage maps (PyTorch port of ``differt_tpu.coverage``, forward, hard masks).
+
+Trace the specular paths, run the slab-Fresnel Jones chain on them, and sum
+the complex channel amplitudes per TX/RX pixel. :func:`power_map_chunked`
+streams candidates and receivers through fixed-size tiles, so memory stays
+``O(candidate_chunk * rx_chunk)`` at city scale.
+"""
+
+import math
+
+import torch
+
+from .em import c, epsilon_0, materials, z_0
+from .em._fresnel import slab_reflection_coefficients
+from .geometry import Scene, TracedPaths
+from .utils import dot3, gather_columns, normalize3, safe_divide, sp_directions3, spherical3
+
+
+def _antennas_not_ported() -> NotImplementedError:
+    return NotImplementedError("Antenna patterns are not ported yet (ROADMAP A10).")
+
+
+def complex_amplitudes(
+    paths: TracedPaths,
+    scene: Scene,
+    frequency,
+    *,
+    eta_r: torch.Tensor,
+    conductivity: torch.Tensor,
+    thickness: torch.Tensor | None = None,
+    tx_pattern=None,
+) -> torch.Tensor:
+    """Complex channel amplitude of every traced path (V polarization), ``[*batch]``.
+
+    Applies the free-space 1/s spreading, the propagation phase, the
+    per-bounce slab-aware Fresnel Jones chain and the isotropic
+    ``lambda / (4 pi)`` scaling; invalid paths contribute 0. Paths whose
+    geometry is not usable (non-finite, or a zero-length segment) are
+    computed on a harmless straight dummy path and weighted 0.
+    """
+    if tx_pattern is not None:
+        raise _antennas_not_ported()
+    device = paths.vertices.device
+    frequency = torch.as_tensor(frequency, dtype=torch.float32, device=device)
+    eta_r = torch.as_tensor(eta_r, dtype=torch.float32, device=device)
+    conductivity = torch.as_tensor(conductivity, dtype=torch.float32, device=device)
+    omega = 2.0 * math.pi * frequency
+    n_complex = torch.sqrt(eta_r - 1j * conductivity / (omega * epsilon_0))
+    wavelength = c / frequency
+    if thickness is None:
+        thickness = torch.full_like(eta_r, -1.0)
+    else:
+        thickness = torch.as_tensor(thickness, dtype=torch.float32, device=device)
+
+    num_points = paths.vertices.shape[-2]
+    order = paths.order
+    # [*batch, L, 3] -> [L, 3, *batch]: one tensor per (point, axis).
+    v_soa = torch.movedim(paths.vertices, (-2, -1), (0, 1))
+    diffs = v_soa[1:] - v_soa[:-1]
+    seg_ok = (diffs * diffs).sum(dim=1).amin(dim=0) > 1e-12
+    geom_finite = torch.isfinite(v_soa).all(dim=1).all(dim=0) & seg_ok
+    pts = [
+        [
+            torch.where(geom_finite, v_soa[l, axis], float(l) if axis == 0 else 0.0)
+            for axis in range(3)
+        ]
+        for l in range(num_points)
+    ]
+
+    k_hats, s_lens = [], []
+    for i in range(num_points - 1):
+        k_hat, s_len = normalize3(tuple(pts[i + 1][ax] - pts[i][ax] for ax in range(3)))
+        k_hats.append(k_hat)
+        s_lens.append(s_len)
+
+    e_theta = torch.ones(paths.mask.shape, dtype=torch.complex64, device=device)
+    e_phi = torch.zeros(paths.mask.shape, dtype=torch.complex64, device=device)
+
+    if order > 0:
+        mesh = scene.mesh
+        normals_t = mesh.normals
+        is_reflection = paths.interaction_types == 0
+        num_tri = normals_t.shape[0]
+        if mesh.face_materials is None:
+            n_r_tri = n_complex[0].expand(num_tri)
+            thick_tri = thickness[0].expand(num_tri)
+        else:
+            # Clamped gathers: a face material beyond the supplied table
+            # takes its last entry instead of poisoning the pixel sum.
+            mats = mesh.face_materials.clamp(0, n_complex.shape[0] - 1)
+            n_r_tri = n_complex[mats]
+            thick_tri = thickness[mats]
+        table = torch.cat(
+            (
+                normals_t.to(torch.float32),
+                n_r_tri.real[:, None],
+                n_r_tri.imag[:, None],
+                thick_tri[:, None],
+            ),
+            dim=-1,
+        )
+
+        for b in range(order):
+            cols = gather_columns(table, paths.objects[..., b + 1])
+            normal = (cols[0], cols[1], cols[2])
+            n_r_val = torch.complex(cols[3], cols[4])
+            thickness_val = cols[5]
+
+            k_in, k_out = k_hats[b], k_hats[b + 1]
+            th_in, ph_in = spherical3(k_in)
+            th_out, ph_out = spherical3(k_out)
+            (e_i_s, e_i_p), (e_r_s, e_r_p) = sp_directions3(k_in, k_out, normal)
+            cos_theta_i = -dot3(normal, k_in)
+            r_s, r_p = slab_reflection_coefficients(
+                n_r_val, cos_theta_i, thickness_val, wavelength
+            )
+
+            # (theta, phi) -> local (s, p), scale, -> next (theta, phi).
+            f_s = r_s * (dot3(e_i_s, th_in) * e_theta + dot3(e_i_s, ph_in) * e_phi)
+            f_p = r_p * (dot3(e_i_p, th_in) * e_theta + dot3(e_i_p, ph_in) * e_phi)
+            new_theta = dot3(th_out, e_r_s) * f_s + dot3(th_out, e_r_p) * f_p
+            new_phi = dot3(ph_out, e_r_s) * f_s + dot3(ph_out, e_r_p) * f_p
+
+            keep = is_reflection[..., b]
+            e_theta = torch.where(keep, new_theta, e_theta)
+            e_phi = torch.where(keep, new_phi, e_phi)
+
+    k_last = k_hats[-1]
+    theta_hat_last, _ = spherical3(k_last)
+    theta_hat_neg, _ = spherical3(tuple(-comp for comp in k_last))
+    a = dot3(theta_hat_last, theta_hat_neg) * e_theta
+
+    s_tot = s_lens[0]
+    for s_len in s_lens[1:]:
+        s_tot = s_tot + s_len
+    spreading = safe_divide(torch.ones_like(s_tot), s_tot)
+    phase = -2.0 * math.pi * frequency * s_tot / c
+    a = a * spreading * torch.complex(torch.cos(phase), torch.sin(phase))
+    a = a * (wavelength / (4 * math.pi))
+
+    weight = paths.mask.to(torch.float32) * geom_finite.to(torch.float32)
+    return a * weight
+
+
+def received_power(
+    paths: TracedPaths,
+    scene: Scene,
+    frequency,
+    *,
+    eta_r: torch.Tensor,
+    conductivity: torch.Tensor,
+    thickness: torch.Tensor | None = None,
+    coherent: bool = True,
+    tx_pattern=None,
+) -> torch.Tensor:
+    """Received power per TX/RX pair; the last (candidate) axis of ``paths`` is summed."""
+    a = complex_amplitudes(
+        paths,
+        scene,
+        frequency,
+        eta_r=eta_r,
+        conductivity=conductivity,
+        thickness=thickness,
+        tx_pattern=tx_pattern,
+    )
+    if coherent:
+        return torch.abs(a.sum(dim=-1)) ** 2 / z_0
+    return (torch.abs(a) ** 2).sum(dim=-1) / z_0
+
+
+def _resolve_materials(scene: Scene, frequency: torch.Tensor, eta_r, conductivity, thickness):
+    """Default material arrays from the ITU table at ``frequency``."""
+    device = scene.mesh.device
+    if eta_r is None or conductivity is None:
+        names = scene.mesh.material_names or ("Vacuum",)
+        eta_r = torch.stack([materials[n].relative_permittivity(frequency) for n in names])
+        conductivity = torch.stack([materials[n].conductivity(frequency) for n in names])
+        thickness = torch.tensor(
+            [
+                materials[n].thickness if materials[n].thickness is not None else -1.0
+                for n in names
+            ]
+        )
+    as_f32 = lambda x: torch.as_tensor(x, dtype=torch.float32).to(device)  # noqa: E731
+    return as_f32(eta_r), as_f32(conductivity), None if thickness is None else as_f32(thickness)
+
+
+def power_map(
+    scene: Scene,
+    frequency,
+    *,
+    order: int = 1,
+    eta_r: torch.Tensor | None = None,
+    conductivity: torch.Tensor | None = None,
+    thickness: torch.Tensor | None = None,
+    coherent: bool = True,
+    tx_pattern=None,
+    **solver_kwargs,
+) -> torch.Tensor:
+    """Coverage map: received power for every TX/RX pair, ``[*tx_batch, *rx_batch]``.
+
+    Materials default to the ITU table at ``frequency``.
+
+    >>> import torch
+    >>> from differt_tpu_torch.geometry import Mesh, Scene
+    >>> mesh = Mesh.box(20.0, 10.0, 6.0, with_top=False).set_materials("Concrete")
+    >>> scene = Scene(transmitters=torch.tensor([[-5.0, 0.0, 1.0]]), mesh=mesh)
+    >>> power = power_map(scene.with_receivers_grid(4, 2, height=1.0), 2.4e9, order=1)
+    >>> tuple(power.shape), bool((power > 0).all())
+    ((1, 2, 4), True)
+    """
+    if tx_pattern is not None:
+        raise _antennas_not_ported()
+    frequency = torch.as_tensor(frequency, dtype=torch.float32, device=scene.mesh.device)
+    eta_r, conductivity, thickness = _resolve_materials(
+        scene, frequency, eta_r, conductivity, thickness
+    )
+    paths = scene.trace_paths(order=order, **solver_kwargs)
+    return received_power(
+        paths,
+        scene,
+        frequency,
+        eta_r=eta_r,
+        conductivity=conductivity,
+        thickness=thickness,
+        coherent=coherent,
+    )
+
+
+def _coverage_tile(
+    scene: Scene,
+    tx: torch.Tensor,
+    rx_tile: torch.Tensor,
+    cand_chunk: torch.Tensor,
+    itype_chunk: torch.Tensor,
+    chunk_valid: torch.Tensor,
+    frequency: torch.Tensor,
+    eta_r: torch.Tensor,
+    conductivity: torch.Tensor,
+    thickness: torch.Tensor | None,
+    coherent: bool,
+    megakernel: bool | None,
+) -> torch.Tensor:
+    """One (RX tile, candidate chunk) step of :func:`power_map_chunked`.
+
+    Returns the complex path sum (``coherent``) or the power sum per
+    ``[num_tx, rx_chunk]`` pixel; padded candidates are masked out.
+    """
+    from .rt._solvers import trace_path_candidates
+
+    paths = trace_path_candidates(
+        scene.mesh,
+        tx,
+        rx_tile,
+        cand_chunk,
+        interaction_types=itype_chunk,
+        megakernel=megakernel,
+    )
+    paths = TracedPaths(
+        paths.vertices,
+        paths.objects,
+        mask=paths.mask & chunk_valid,
+        interaction_types=paths.interaction_types,
+    )
+    a = complex_amplitudes(
+        paths,
+        scene,
+        frequency,
+        eta_r=eta_r,
+        conductivity=conductivity,
+        thickness=thickness,
+    )
+    if coherent:
+        return a.sum(dim=-1)
+    return (torch.abs(a) ** 2).sum(dim=-1)
+
+
+def power_map_chunked(
+    scene: Scene,
+    frequency,
+    *,
+    order: int = 1,
+    eta_r: torch.Tensor | None = None,
+    conductivity: torch.Tensor | None = None,
+    thickness: torch.Tensor | None = None,
+    coherent: bool = True,
+    path_candidates: torch.Tensor | None = None,
+    candidate_chunk: int = 4096,
+    rx_chunk: int = 4096,
+    tx_pattern=None,
+    megakernel: bool | None = None,
+) -> torch.Tensor:
+    """Coverage map streamed through fixed-size tiles, ``[*tx_batch, *rx_batch]``.
+
+    Candidates go ``candidate_chunk`` at a time through each RX tile of
+    ``rx_chunk`` receivers, accumulating the complex path sum (or the power
+    sum) per pixel. The receivers are Morton-ordered first, so each tile is
+    spatially compact; the map is scattered back to input order.
+    ``path_candidates`` overrides the exhaustive candidate set.
+    """
+    if tx_pattern is not None:
+        raise _antennas_not_ported()
+    from .ops._rt import morton_perm_points
+    from .rt._solvers import ExhaustivePathTracer
+
+    device = scene.mesh.device
+    frequency = torch.as_tensor(frequency, dtype=torch.float32, device=device)
+    eta_r, conductivity, thickness = _resolve_materials(
+        scene, frequency, eta_r, conductivity, thickness
+    )
+    tx = scene.transmitters.reshape(-1, 3)
+    rx_all = scene.receivers.reshape(-1, 3)
+
+    if path_candidates is None:
+        candidates, itypes = ExhaustivePathTracer().generate_path_candidates(scene, order)
+    else:
+        candidates = torch.as_tensor(path_candidates, device=device)
+        itypes = torch.zeros_like(candidates, dtype=torch.int32)
+
+    num_candidates = candidates.shape[0]
+    candidate_chunk = min(candidate_chunk, max(num_candidates, 1))
+    pad_c = -num_candidates % candidate_chunk
+    if pad_c:
+        candidates = torch.cat((candidates, candidates[:1].expand(pad_c, -1)))
+        itypes = torch.cat((itypes, itypes[:1].expand(pad_c, -1)))
+
+    num_rx = rx_all.shape[0]
+    rx_chunk = min(rx_chunk, max(num_rx, 1))
+    rx_perm = None
+    if num_rx > rx_chunk:
+        rx_perm = morton_perm_points(rx_all)
+        rx_all = rx_all[rx_perm]
+    pad_r = -num_rx % rx_chunk
+    if pad_r:
+        rx_all = torch.cat((rx_all, rx_all[:1].expand(pad_r, 3)))
+
+    out_tiles = []
+    for r0 in range(0, rx_all.shape[0], rx_chunk):
+        rx_tile = rx_all[r0 : r0 + rx_chunk]
+        acc = None
+        for lo in range(0, candidates.shape[0], candidate_chunk):
+            chunk_valid = (
+                torch.arange(lo, lo + candidate_chunk, device=device) < num_candidates
+            )
+            part = _coverage_tile(
+                scene,
+                tx,
+                rx_tile,
+                candidates[lo : lo + candidate_chunk],
+                itypes[lo : lo + candidate_chunk],
+                chunk_valid,
+                frequency,
+                eta_r,
+                conductivity,
+                thickness,
+                coherent,
+                megakernel,
+            )
+            acc = part if acc is None else acc + part
+        out_tiles.append(acc)
+
+    total = torch.cat(out_tiles, dim=-1)[..., :num_rx]
+    if rx_perm is not None:
+        total = total[..., torch.argsort(rx_perm)]
+    power = torch.abs(total) ** 2 / z_0 if coherent else total / z_0
+    return power.reshape(*scene.transmitters.shape[:-1], *scene.receivers.shape[:-1])

@@ -1,0 +1,85 @@
+"""Scene container (PyTorch port of ``differt_tpu.geometry._scene``, subset)."""
+
+import dataclasses
+import math
+
+import torch
+
+from ._mesh import Mesh
+
+
+@dataclasses.dataclass(frozen=True)
+class Scene:
+    """A triangle mesh plus transmitters and receivers (any batch shapes)."""
+
+    transmitters: torch.Tensor = dataclasses.field(
+        default_factory=lambda: torch.empty((0, 3))
+    )
+    """``[*tx_batch, 3]`` transmitter positions."""
+    receivers: torch.Tensor = dataclasses.field(
+        default_factory=lambda: torch.empty((0, 3))
+    )
+    """``[*rx_batch, 3]`` receiver positions."""
+    mesh: Mesh = dataclasses.field(default_factory=Mesh.empty)
+    """The scene geometry."""
+
+    @property
+    def num_receivers(self) -> int:
+        return math.prod(self.receivers.shape[:-1])
+
+    def with_receivers_grid(
+        self, m: int = 50, n: int | None = 50, *, height: float = 1.5
+    ) -> "Scene":
+        """Place an ``n x m`` grid of receivers over the scene footprint."""
+        return dataclasses.replace(self, receivers=self._grid(m, n, height=height))
+
+    def _grid(self, m: int, n: int | None, *, height: float) -> torch.Tensor:
+        if n is None:
+            n = m
+        (min_x, min_y, _), (max_x, max_y, _) = self.mesh.bounding_box.tolist()
+        kwargs = {"dtype": self.mesh.vertices.dtype, "device": self.mesh.device}
+        y, x = torch.meshgrid(
+            torch.linspace(min_y, max_y, n, **kwargs),
+            torch.linspace(min_x, max_x, m, **kwargs),
+            indexing="ij",
+        )
+        return torch.stack((x, y, torch.full_like(x, height)), dim=-1)
+
+    def _batched(self, paths, trailing: int):
+        """Reshape flat solver output to ``[*tx_batch, *rx_batch, trailing]``."""
+        return paths.reshape(
+            *self.transmitters.shape[:-1], *self.receivers.shape[:-1], trailing
+        )
+
+    def trace_paths(
+        self,
+        order: int | None = None,
+        *,
+        path_candidates: torch.Tensor | None = None,
+        **solver_kwargs,
+    ):
+        """Trace exact specular paths between all TX/RX pairs (exhaustive solver).
+
+        ``solver_kwargs`` configure the
+        :class:`~differt_tpu_torch.rt.ExhaustivePathTracer` (tolerances,
+        ``megakernel``). Returns :class:`TracedPaths` of batch shape
+        ``[*tx_batch, *rx_batch, num_candidates]``.
+        """
+        from ..rt._solvers import ExhaustivePathTracer
+
+        if (order is None) == (path_candidates is None):
+            msg = "trace_paths needs exactly one of 'order' and 'path_candidates'."
+            raise ValueError(msg)
+        tracer = ExhaustivePathTracer(**solver_kwargs)
+        if path_candidates is not None:
+            candidates = torch.as_tensor(path_candidates, device=self.mesh.device)
+            if self.mesh.assume_quads:
+                # Quad candidates address the even (first) triangle of a pair.
+                candidates = candidates & ~1
+            types = torch.zeros_like(candidates, dtype=torch.int32)
+        else:
+            candidates, types = tracer.generate_path_candidates(self, order)
+        return self._batched(
+            tracer.trace_path_candidates(self, candidates, types),
+            candidates.shape[0],
+        )

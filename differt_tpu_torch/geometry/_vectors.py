@@ -1,0 +1,88 @@
+"""Vector utilities (PyTorch port of ``differt_tpu.geometry._vectors``)."""
+
+import torch
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    # Written out so the sum runs left to right, as XLA's reduce does.
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.stack(
+        (
+            a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+            a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+            a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0],
+        ),
+        dim=-1,
+    )
+
+
+def normalize(
+    vectors: torch.Tensor, keepdims: bool = False
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Normalize vectors, returning ``(unit_vectors, lengths)``.
+
+    Zero-length vectors come back unchanged with a length of 0.
+
+    >>> import torch
+    >>> unit, length = normalize(torch.tensor([3.0, 0.0, 4.0]))
+    >>> [round(x, 6) for x in unit.tolist()], float(length)
+    ([0.6, 0.0, 0.8], 5.0)
+    """
+    lengths = torch.sqrt(_dot(vectors, vectors))[..., None]
+    safe = torch.where(lengths == 0.0, torch.ones_like(lengths), lengths)
+    unit = vectors / safe
+    return unit, (lengths if keepdims else lengths[..., 0])
+
+
+def perpendicular_vector(u: torch.Tensor) -> torch.Tensor:
+    """A unit vector perpendicular to ``u`` (the reference's branch rule)."""
+    zeros = torch.zeros_like(u[..., 0])
+    cand_a = torch.stack((-u[..., 1], u[..., 0], zeros), dim=-1)
+    cand_b = torch.stack((zeros, -u[..., 2], u[..., 1]), dim=-1)
+    pick_a = (torch.abs(u[..., 0]) > torch.abs(u[..., 1]))[..., None]
+    return normalize(_cross(u, torch.where(pick_a, cand_a, cand_b)))[0]
+
+
+def orthogonal_basis(u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Unit vectors ``(v, w)`` forming an orthogonal basis with ``u``."""
+    w = perpendicular_vector(u)
+    v = normalize(_cross(w, u))[0]
+    return v, w
+
+
+def assemble_path(
+    from_vertex: torch.Tensor,
+    intermediate_vertices: torch.Tensor,
+    to_vertex: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Concatenate start, intermediate and end vertices into full paths.
+
+    With ``to_vertex=None``, ``intermediate_vertices`` is the end vertex.
+    """
+    if to_vertex is None:
+        batch = torch.broadcast_shapes(
+            from_vertex.shape[:-1], intermediate_vertices.shape[:-1]
+        )
+        return torch.cat(
+            (
+                from_vertex[..., None, :].expand(*batch, 1, 3),
+                intermediate_vertices[..., None, :].expand(*batch, 1, 3),
+            ),
+            dim=-2,
+        )
+    batch = torch.broadcast_shapes(
+        from_vertex.shape[:-1],
+        intermediate_vertices.shape[:-2],
+        to_vertex.shape[:-1],
+    )
+    return torch.cat(
+        (
+            from_vertex[..., None, :].expand(*batch, 1, 3),
+            intermediate_vertices.expand(*batch, *intermediate_vertices.shape[-2:]),
+            to_vertex[..., None, :].expand(*batch, 1, 3),
+        ),
+        dim=-2,
+    )

@@ -1,0 +1,71 @@
+"""Carry meshes and scenes across as dicts of numpy arrays.
+
+This repository has no weights: the mesh and its material table are the
+state. A dict of numpy arrays (made, for instance, with ``np.asarray`` on
+the fields of a JAX ``Scene``) becomes the port's objects on a device, so
+both packages can trace the same geometry.
+
+Mesh keys: ``vertices``, ``triangles``, ``face_materials``,
+``material_names``, ``mask``, ``object_bounds``, ``assume_quads``; the
+optional ones may be missing or None. Scene keys: ``transmitters``,
+``receivers`` and ``mesh`` (a mesh dict).
+"""
+
+import numpy as np
+import torch
+
+from .geometry import Mesh, Scene
+
+
+def _tensor(value, dtype: torch.dtype, device) -> torch.Tensor | None:
+    if value is None:
+        return None
+    return torch.as_tensor(np.array(value), device=device).to(dtype)
+
+
+def mesh_from_numpy(fields: dict, *, device: torch.device | str = "cpu") -> Mesh:
+    """Build a :class:`Mesh` on ``device`` from a dict of numpy arrays."""
+    return Mesh(
+        vertices=_tensor(fields["vertices"], torch.float32, device),
+        triangles=_tensor(fields["triangles"], torch.int64, device),
+        face_materials=_tensor(fields.get("face_materials"), torch.int64, device),
+        material_names=tuple(str(n) for n in fields.get("material_names") or ()),
+        object_bounds=_tensor(fields.get("object_bounds"), torch.int64, device),
+        assume_quads=bool(fields.get("assume_quads", False)),
+        mask=_tensor(fields.get("mask"), torch.bool, device),
+    )
+
+
+def scene_from_numpy(fields: dict, *, device: torch.device | str = "cpu") -> Scene:
+    """Build a :class:`Scene` on ``device`` from a dict of numpy arrays."""
+    empty = np.empty((0, 3), dtype=np.float32)
+    transmitters = fields.get("transmitters")
+    receivers = fields.get("receivers")
+    return Scene(
+        transmitters=_tensor(empty if transmitters is None else transmitters, torch.float32, device),
+        receivers=_tensor(empty if receivers is None else receivers, torch.float32, device),
+        mesh=mesh_from_numpy(fields["mesh"], device=device),
+    )
+
+
+def mesh_to_numpy(mesh: Mesh) -> dict:
+    """The inverse of :func:`mesh_from_numpy`."""
+    as_np = lambda x: None if x is None else x.detach().cpu().numpy()  # noqa: E731
+    return {
+        "vertices": as_np(mesh.vertices),
+        "triangles": as_np(mesh.triangles),
+        "face_materials": as_np(mesh.face_materials),
+        "material_names": mesh.material_names,
+        "mask": as_np(mesh.mask),
+        "object_bounds": as_np(mesh.object_bounds),
+        "assume_quads": mesh.assume_quads,
+    }
+
+
+def scene_to_numpy(scene: Scene) -> dict:
+    """The inverse of :func:`scene_from_numpy`."""
+    return {
+        "transmitters": scene.transmitters.detach().cpu().numpy(),
+        "receivers": scene.receivers.detach().cpu().numpy(),
+        "mesh": mesh_to_numpy(scene.mesh),
+    }

@@ -1,0 +1,291 @@
+"""Any-hit ray casting: the Hopper kernel's wrapper, its plain version and input prep.
+
+Replaces the TPU kernel ``differt_tpu/ops/_pallas_rt.py::_anyhit_kernel``
+(driver ``_run_anyhit``, entry ``pallas_ray_intersect_any_triangle``) with
+the hand-written CUDA kernel in ``differt_tpu_torch/csrc/anyhit.cu``.
+
+What bounds it on the H100 is the Möller–Trumbore work that culling cannot
+skip and the divergence of rays within a warp; the mesh (1 MB at 20,738
+triangles) sits in L2, so memory traffic is not the limit. The kernel runs
+one thread per ray over Morton-sorted 64-triangle chunks behind two levels
+of AABB tests, exiting at the first hit (see the kernel's header note).
+
+The input preparation (Morton sort, chunk and tile boxes) is plain PyTorch
+here, shared with the fused trace kernel, and keeps the reference's
+semantics so that its results can be compared with the JAX package's.
+"""
+
+import torch
+
+from ..rt._scan import any_hit_below
+from ..rt._triangle import F32_EPS
+from ._build import check_launch, load_kernels
+
+T_SUB = 64
+"""Triangles per culling chunk (``kChunk`` in ``csrc/mt.cuh``)."""
+CHUNKS_PER_TILE = 8
+"""Chunks per first-level culling tile (``kChunksPerTile`` in ``csrc/mt.cuh``)."""
+_SLAB_TINY = 1e-30
+_MAX_PAIRS = 1 << 24
+"""Ray-triangle pairs per tile of the plain any-hit version (bounds its memory)."""
+
+LAUNCHES = 0
+"""Launches of the CUDA any-hit kernel in this process."""
+REFERENCE_CALLS = 0
+"""Calls of :func:`ray_intersect_any_triangle_reference` in this process."""
+
+
+def _part1by2(x: torch.Tensor) -> torch.Tensor:
+    # uint32 shifts of the reference, in int64 masked to 32 bits.
+    x = x & 0x3FF
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def morton_perm_points(points: torch.Tensor) -> torch.Tensor:
+    """Permutation sorting 3D points along a Morton (Z-order) curve.
+
+    Equal to the JAX package's permutation (stable sort of the same codes).
+
+    >>> import torch
+    >>> pts = torch.tensor([[0.0, 0, 0], [9, 9, 9], [0.1, 0, 0], [9, 8.9, 9]])
+    >>> morton_perm_points(pts).tolist()
+    [0, 2, 3, 1]
+    """
+    if points.shape[0] == 0:
+        return torch.empty(0, dtype=torch.int64, device=points.device)
+    lo = points.min(dim=0).values
+    hi = points.max(dim=0).values
+    extent = torch.where(hi > lo, hi - lo, torch.ones_like(hi))
+    q = ((points - lo) / extent * 1023.0).to(torch.int64).clamp(0, 1023)
+    code = (
+        _part1by2(q[:, 0]) | (_part1by2(q[:, 1]) << 1) | (_part1by2(q[:, 2]) << 2)
+    )
+    return torch.argsort(code, stable=True)
+
+
+def _morton_perm(triangle_vertices: torch.Tensor) -> torch.Tensor:
+    """Permutation sorting triangles by their centroids along a Morton curve."""
+    return morton_perm_points(triangle_vertices.mean(dim=1))
+
+
+def _chunk_aabbs(tris: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """Per-``T_SUB``-chunk AABBs of the padded ``[9, T]`` v0/e1/e2 layout.
+
+    ``active`` is the padded ``[1, T]`` int mask. Returns ``[8, T // T_SUB]``:
+    rows 0-2 min xyz, rows 3-5 max xyz (with a relative margin, so that
+    rounding never culls a grazing hit), rows 6-7 zero. Chunks with no
+    active triangle get an inverted box.
+    """
+    v0 = tris[0:3]
+    v1 = tris[0:3] + tris[3:6]
+    v2 = tris[0:3] + tris[6:9]
+    ok = active[0] > 0
+    mn = torch.minimum(torch.minimum(v0, v1), v2)
+    mx = torch.maximum(torch.maximum(v0, v1), v2)
+    inf = torch.tensor(torch.inf, dtype=mn.dtype, device=mn.device)
+    mn = torch.where(ok, mn, inf).reshape(3, -1, T_SUB).amin(dim=-1)
+    mx = torch.where(ok, mx, -inf).reshape(3, -1, T_SUB).amax(dim=-1)
+    extent = torch.where(torch.isfinite(mx), mx, -inf).max() - torch.where(
+        torch.isfinite(mn), mn, inf
+    ).min()
+    margin = 1e-5 * torch.where(torch.isfinite(extent), extent.abs(), 0.0) + 1e-12
+    aabb = torch.cat((mn - margin, mx + margin), dim=0)
+    return torch.cat((aabb, torch.zeros_like(aabb[:2])), dim=0).to(torch.float32)
+
+
+def _tile_aabbs(chunk_aabb: torch.Tensor, chunks_per_tile: int) -> torch.Tensor:
+    """Fold ``[8, num_chunks]`` chunk AABBs up to ``[8, num_tiles]`` tile AABBs.
+
+    A last, partial tile folds only the chunks it has.
+    """
+    num_chunks = chunk_aabb.shape[1]
+    pad = -num_chunks % chunks_per_tile
+    lo = torch.nn.functional.pad(chunk_aabb[0:3], (0, pad), value=torch.inf)
+    hi = torch.nn.functional.pad(chunk_aabb[3:6], (0, pad), value=-torch.inf)
+    tiles = torch.cat(
+        (
+            lo.reshape(3, -1, chunks_per_tile).amin(dim=-1),
+            hi.reshape(3, -1, chunks_per_tile).amax(dim=-1),
+        )
+    )
+    return torch.cat((tiles, torch.zeros_like(tiles[:2])))
+
+
+def _slab_overlap(o, d, box, t_hi) -> torch.Tensor:
+    """Conservative segment-vs-AABB slab test (``csrc/mt.cuh::slab_overlap``).
+
+    ``o`` and ``d`` are 3-lists of tensors, ``box`` a 6-list (min xyz, max
+    xyz), ``t_hi`` the upper parameter bound. Never a false miss for a
+    segment whose ``[0, t_hi]`` part touches the box.
+    """
+    tnear = torch.zeros_like(o[0])
+    tfar = torch.broadcast_to(torch.as_tensor(t_hi, dtype=o[0].dtype), o[0].shape)
+    for c in range(3):
+        dc = d[c]
+        tiny = torch.where(dc < 0.0, -_SLAB_TINY, _SLAB_TINY).to(dc.dtype)
+        inv = 1.0 / torch.where(torch.abs(dc) < _SLAB_TINY, tiny, dc)
+        t1 = (box[c] - o[c]) * inv
+        t2 = (box[3 + c] - o[c]) * inv
+        tnear = torch.maximum(tnear, torch.minimum(t1, t2))
+        tfar = torch.minimum(tfar, torch.maximum(t1, t2))
+    return tnear <= tfar
+
+
+def prepare_mesh(
+    triangle_vertices: torch.Tensor, active_triangles: torch.Tensor | None
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """Morton-sorted mesh and culling boxes in the kernels' layout (``csrc/mt.cuh``).
+
+    Returns ``(mesh [num_chunks * 64, 12], chunk_box [num_chunks, 8],
+    tile_box [num_tiles, 8], num_chunks)``, all float32 and contiguous.
+    """
+    num_tris = triangle_vertices.shape[0]
+    device = triangle_vertices.device
+    padded = -(-max(num_tris, 1) // T_SUB) * T_SUB
+    perm = _morton_perm(triangle_vertices)
+    tv = triangle_vertices[perm]
+    v0 = tv[:, 0, :]
+    soa = torch.cat((v0, tv[:, 1, :] - v0, tv[:, 2, :] - v0), dim=-1).T
+    soa = torch.nn.functional.pad(soa, (0, padded - num_tris))
+    if active_triangles is None:
+        active = torch.ones(num_tris, dtype=torch.int32, device=device)
+    else:
+        active = active_triangles[perm].to(torch.int32)
+    active = torch.nn.functional.pad(active, (0, padded - num_tris))[None]
+
+    chunk = _chunk_aabbs(soa, active)
+    any_active = (active[0].reshape(-1, T_SUB) > 0).any(dim=-1)
+    tile = _tile_aabbs(chunk, CHUNKS_PER_TILE)
+    tile_active = torch.nn.functional.pad(
+        any_active, (0, -any_active.shape[0] % CHUNKS_PER_TILE)
+    ).reshape(-1, CHUNKS_PER_TILE).any(dim=-1)
+
+    def boxes(aabb, alive):
+        # [8, n] rows (min xyz, max xyz, 0, 0) -> [n, 8] (min xyz, flag, max xyz, 0).
+        return torch.stack(
+            (*aabb[0:3], alive.to(torch.float32), *aabb[3:6], aabb[6]), dim=-1
+        ).contiguous()
+
+    mesh = torch.cat(
+        (soa.T, active[0, :, None].to(torch.float32), torch.zeros_like(soa[:2].T)),
+        dim=-1,
+    ).contiguous()
+    return mesh, boxes(chunk, any_active), boxes(tile, tile_active), padded // T_SUB
+
+
+def ray_intersect_any_triangle_reference(
+    ray_origins: torch.Tensor,
+    ray_directions: torch.Tensor,
+    triangle_vertices: torch.Tensor,
+    active_triangles: torch.Tensor | None = None,
+    *,
+    hit_threshold: torch.Tensor,
+    epsilon: float | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the any-hit kernel, with the same contract.
+
+    ``ray_origins`` and ``ray_directions`` are ``[R, 3]``, ``hit_threshold``
+    ``[R]``: ray ``i`` is blocked when it hits an active triangle with
+    ``epsilon < t < hit_threshold[i]``; a negative threshold marks an
+    inactive ray, which is never blocked. Only the active rays are tested,
+    against triangle tiles of at most ``_MAX_PAIRS`` ray-triangle pairs.
+    """
+    global REFERENCE_CALLS
+    REFERENCE_CALLS += 1
+    out = torch.zeros(ray_origins.shape[0], dtype=torch.bool, device=ray_origins.device)
+    live = torch.nonzero(hit_threshold >= 0.0).squeeze(-1)
+    if live.numel() == 0:
+        return out
+    out[live] = any_hit_below(
+        ray_origins[live],
+        ray_directions[live],
+        triangle_vertices,
+        active_triangles,
+        hit_threshold[live],
+        epsilon=epsilon,
+        tile=_MAX_PAIRS // live.shape[0],
+    )
+    return out
+
+
+def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
+    if x.device != device:
+        msg = f"{name} is on {x.device}, expected {device}."
+        raise ValueError(msg)
+    if x.dtype != dtype:
+        msg = f"{name} has dtype {x.dtype}, expected {dtype}."
+        raise TypeError(msg)
+    if tuple(x.shape) != shape:
+        msg = f"{name} has shape {tuple(x.shape)}, expected {shape}."
+        raise ValueError(msg)
+    if not x.is_contiguous():
+        msg = f"{name} must be contiguous."
+        raise ValueError(msg)
+
+
+def ray_intersect_any_triangle_cuda(
+    ray_origins: torch.Tensor,
+    ray_directions: torch.Tensor,
+    triangle_vertices: torch.Tensor,
+    active_triangles: torch.Tensor | None = None,
+    *,
+    hit_threshold: torch.Tensor,
+    epsilon: float | None = None,
+) -> torch.Tensor:
+    """Any-hit test on the CUDA kernel; see :func:`ray_intersect_any_triangle_reference`.
+
+    Inputs are float32 ``[R, 3]`` rays, ``[T, 3, 3]`` triangles, an optional
+    ``[T]`` bool mask and ``[R]`` thresholds, contiguous and on one device.
+    CPU tensors take the plain version; CUDA tensors launch the kernel (or
+    raise); other devices raise.
+    """
+    device = ray_origins.device
+    if device.type == "cpu":
+        return ray_intersect_any_triangle_reference(
+            ray_origins,
+            ray_directions,
+            triangle_vertices,
+            active_triangles,
+            hit_threshold=hit_threshold,
+            epsilon=epsilon,
+        )
+    if device.type != "cuda":
+        msg = f"The any-hit kernel runs on CUDA tensors, not on {device}."
+        raise ValueError(msg)
+    num_rays = ray_origins.shape[0]
+    num_tris = triangle_vertices.shape[0]
+    _check("ray_origins", ray_origins, torch.float32, (num_rays, 3), device)
+    _check("ray_directions", ray_directions, torch.float32, (num_rays, 3), device)
+    _check("triangle_vertices", triangle_vertices, torch.float32, (num_tris, 3, 3), device)
+    _check("hit_threshold", hit_threshold, torch.float32, (num_rays,), device)
+    if active_triangles is not None:
+        _check("active_triangles", active_triangles, torch.bool, (num_tris,), device)
+    if epsilon is None:
+        epsilon = 10.0 * F32_EPS
+
+    out = torch.empty(num_rays, dtype=torch.bool, device=device)
+    if num_rays == 0:
+        return out
+    mesh, chunk_box, tile_box, num_chunks = prepare_mesh(triangle_vertices, active_triangles)
+    lib = load_kernels()
+    global LAUNCHES
+    status = lib.differt_anyhit(
+        ray_origins.data_ptr(),
+        ray_directions.data_ptr(),
+        hit_threshold.data_ptr(),
+        mesh.data_ptr(),
+        chunk_box.data_ptr(),
+        tile_box.data_ptr(),
+        num_rays,
+        num_chunks,
+        epsilon,
+        out.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    LAUNCHES += 1
+    check_launch("differt_anyhit", status)
+    return out

@@ -1,0 +1,253 @@
+"""Fused specular trace: the Hopper kernel's wrapper and its plain version.
+
+Replaces the TPU kernel ``differt_tpu/ops/_pallas_trace.py::_trace_kernel``
+(driver ``_pallas_trace_specular_impl``, entry ``pallas_trace_specular``)
+with the hand-written CUDA kernel in ``differt_tpu_torch/csrc/trace.cu``.
+
+What bounds it on the H100: nearly every candidate path fails the cheap
+geometric checks at city scale, so the cost is the per-path geometry (tens
+of flops in registers), the store of ``(k+2)*12`` bytes of vertices per
+path, and the divergent any-hit walk of the few paths that survive. The
+kernel runs one thread per (TX, candidate, RX) path, neighbouring threads
+on neighbouring receivers of one candidate, and only surviving paths walk
+the Morton-sorted mesh (see the kernel's header note). The VMEM-driven tile
+pickers of the TPU kernel (``_pick_tile_t``, ``_pick_c_tile``) have no
+counterpart here.
+
+Gradients are not ported yet (ROADMAP A8): a CUDA input that requires a
+gradient raises instead of dropping it.
+"""
+
+import torch
+
+from ..rt._image_method import sign
+from ..rt._triangle import ray_intersect_triangle
+from ..geometry._vectors import _dot
+from ._build import check_launch, load_kernels
+from ._rt import _check, prepare_mesh, ray_intersect_any_triangle_reference
+
+MAX_ORDER = 4
+"""Highest order the CUDA kernel is compiled for (``csrc/trace.cu``)."""
+
+LAUNCHES = 0
+"""Launches of the CUDA trace kernel in this process."""
+REFERENCE_CALLS = 0
+"""Calls of :func:`trace_specular_reference` in this process."""
+
+
+def trace_specular_reference(
+    tx_vertices: torch.Tensor,
+    rx_vertices: torch.Tensor,
+    mirror_vertices: torch.Tensor,
+    mirror_normals: torch.Tensor,
+    candidate_triangles: torch.Tensor,
+    triangle_vertices: torch.Tensor,
+    active_triangles: torch.Tensor | None,
+    *,
+    order: int,
+    epsilon: float,
+    hit_tol: float,
+    min_len: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the fused trace kernel, with its exact contract.
+
+    Shapes: ``tx [Ntx, 3]``, ``rx [Nrx, 3]``, mirror vertices and normals
+    ``[C, k, 3]``, candidate triangles ``[C, tpm * k, 3, 3]`` (``tpm`` = 1,
+    or 2 for quads), mesh ``[T, 3, 3]`` and an optional ``[T]`` mask.
+    Returns vertices ``[Ntx, C, Nrx, k + 2, 3]`` and mask ``[Ntx, C, Nrx]``.
+    Like the kernel, invalid paths keep their raw, possibly non-finite,
+    vertices (the unfused pipeline zeroes them instead).
+    """
+    global REFERENCE_CALLS
+    REFERENCE_CALLS += 1
+    k = order
+    tpm = candidate_triangles.shape[1] // k
+
+    # Forward pass: mirror images of each TX, [Ntx, C, 3].
+    images = []
+    img = tx_vertices[:, None, :]
+    for b in range(k):
+        mv = mirror_vertices[None, :, b, :]
+        n = mirror_normals[None, :, b, :]
+        d = _dot(img - mv, n)[..., None]
+        img = img - 2.0 * d * n
+        images.append(img)
+
+    # Backward pass from each RX, [Ntx, C, Nrx, 3].
+    points = [None] * k
+    point = rx_vertices[None, None, :, :]
+    invalid = torch.zeros((), dtype=torch.bool, device=tx_vertices.device)
+    for b in reversed(range(k)):
+        mv = mirror_vertices[None, :, None, b, :]
+        n = mirror_normals[None, :, None, b, :]
+        direction = images[b][:, :, None, :] - point
+        dn = _dot(direction, n)
+        vn = _dot(mv - point, n)
+        parallel = dn == 0.0
+        tt = vn / torch.where(parallel, torch.ones_like(dn), dn)
+        invalid = invalid | (parallel & (vn != 0.0))
+        point = point + direction * tt[..., None]
+        points[b] = point
+
+    shape = (tx_vertices.shape[0], mirror_vertices.shape[0], rx_vertices.shape[0], 3)
+    chain = [tx_vertices[:, None, None, :].expand(shape)]
+    chain += [p.expand(shape) for p in points]
+    chain += [rx_vertices[None, None, :, :].expand(shape)]
+    vertices = torch.stack(chain, dim=-2)
+
+    finite = ~invalid
+    seg_valid = torch.ones((), dtype=torch.bool, device=tx_vertices.device)
+    seg_origins, seg_directions = [], []
+    for s in range(k + 1):
+        o = chain[s]
+        d = chain[s + 1] - chain[s]
+        finite = finite & torch.isfinite(o).all(dim=-1) & torch.isfinite(d).all(dim=-1)
+        seg_valid = seg_valid & ~(_dot(d, d) < min_len)
+        o = torch.where(torch.isfinite(o), o, 0.0)
+        d = torch.where(torch.isfinite(d), d, 0.0)
+        seg_origins.append(o + d * hit_tol)
+        seg_directions.append(d)
+
+    inside = torch.ones((), dtype=torch.bool, device=tx_vertices.device)
+    for b in range(k):
+        o = chain[b]
+        d = chain[b + 1] - chain[b]
+        hit_any = torch.zeros((), dtype=torch.bool, device=tx_vertices.device)
+        for j in range(tpm):
+            tri = candidate_triangles[None, :, None, tpm * b + j]
+            hit_any = hit_any | ray_intersect_triangle(o, d, tri, epsilon=epsilon)[1]
+        inside = inside & hit_any
+
+    same_side = torch.ones((), dtype=torch.bool, device=tx_vertices.device)
+    for b in range(k):
+        mv = mirror_vertices[None, :, None, b, :]
+        n = mirror_normals[None, :, None, b, :]
+        dot_prev = _dot(chain[b] - mv, n)
+        dot_next = _dot(chain[b + 2] - mv, n)
+        same_side = same_side & (sign(dot_prev) == sign(dot_next))
+
+    geom = (inside & same_side & seg_valid & finite).expand(shape[:-1])
+    # Blockage only for the paths that passed: the others start blocked.
+    thresh = torch.where(
+        geom,
+        torch.tensor(1.0 - 2.0 * hit_tol, dtype=torch.float32, device=geom.device),
+        -1.0,
+    )
+    blocked = ray_intersect_any_triangle_reference(
+        torch.stack(seg_origins, dim=-2).reshape(-1, 3),
+        torch.stack(seg_directions, dim=-2).reshape(-1, 3),
+        triangle_vertices,
+        active_triangles,
+        hit_threshold=thresh[..., None].expand(*shape[:-1], k + 1).reshape(-1),
+        epsilon=epsilon,
+    ).reshape(*shape[:-1], k + 1)
+    return vertices, geom & ~blocked.any(dim=-1)
+
+
+def trace_specular_cuda(
+    tx_vertices: torch.Tensor,
+    rx_vertices: torch.Tensor,
+    mirror_vertices: torch.Tensor,
+    mirror_normals: torch.Tensor,
+    candidate_triangles: torch.Tensor,
+    triangle_vertices: torch.Tensor,
+    active_triangles: torch.Tensor | None,
+    *,
+    order: int,
+    epsilon: float,
+    hit_tol: float,
+    min_len: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused trace on the CUDA kernel; see :func:`trace_specular_reference`.
+
+    Inputs are float32 (the mask bool), contiguous and on one device. CPU
+    tensors take the plain version; CUDA tensors launch the kernel (or
+    raise); other devices raise.
+    """
+    args = (
+        tx_vertices,
+        rx_vertices,
+        mirror_vertices,
+        mirror_normals,
+        candidate_triangles,
+        triangle_vertices,
+        active_triangles,
+    )
+    device = tx_vertices.device
+    if device.type == "cpu":
+        return trace_specular_reference(
+            *args, order=order, epsilon=epsilon, hit_tol=hit_tol, min_len=min_len
+        )
+    if device.type != "cuda":
+        msg = f"The trace kernel runs on CUDA tensors, not on {device}."
+        raise ValueError(msg)
+    if any(x is not None and x.requires_grad for x in args):
+        msg = (
+            "Gradients through the fused trace kernel are not ported yet"
+            " (ROADMAP A8); trace under torch.no_grad() or detach the inputs."
+        )
+        raise NotImplementedError(msg)
+    if not 1 <= order <= MAX_ORDER:
+        msg = f"The trace kernel is compiled for orders 1 to {MAX_ORDER}, not {order}."
+        raise ValueError(msg)
+    num_tx, num_rx = tx_vertices.shape[0], rx_vertices.shape[0]
+    num_cand = mirror_vertices.shape[0]
+    num_tris = triangle_vertices.shape[0]
+    tpm = candidate_triangles.shape[1] // order
+    if tpm not in (1, 2):
+        msg = f"Expected 1 or 2 candidate triangles per mirror, got {tpm}."
+        raise ValueError(msg)
+    f32 = torch.float32
+    _check("tx_vertices", tx_vertices, f32, (num_tx, 3), device)
+    _check("rx_vertices", rx_vertices, f32, (num_rx, 3), device)
+    _check("mirror_vertices", mirror_vertices, f32, (num_cand, order, 3), device)
+    _check("mirror_normals", mirror_normals, f32, (num_cand, order, 3), device)
+    _check(
+        "candidate_triangles",
+        candidate_triangles,
+        f32,
+        (num_cand, tpm * order, 3, 3),
+        device,
+    )
+    _check("triangle_vertices", triangle_vertices, f32, (num_tris, 3, 3), device)
+    if active_triangles is not None:
+        _check("active_triangles", active_triangles, torch.bool, (num_tris,), device)
+
+    vertices = torch.empty((num_tx, num_cand, num_rx, order + 2, 3), dtype=f32, device=device)
+    mask = torch.empty((num_tx, num_cand, num_rx), dtype=torch.bool, device=device)
+    if mask.numel() == 0:
+        return vertices, mask
+    mirrors = torch.cat((mirror_vertices, mirror_normals), dim=-1).contiguous()
+    v0 = candidate_triangles[..., 0, :]
+    cand_tris = torch.cat(
+        (v0, candidate_triangles[..., 1, :] - v0, candidate_triangles[..., 2, :] - v0),
+        dim=-1,
+    ).contiguous()
+    mesh, chunk_box, tile_box, num_chunks = prepare_mesh(triangle_vertices, active_triangles)
+    lib = load_kernels()
+    global LAUNCHES
+    status = lib.differt_trace(
+        tx_vertices.data_ptr(),
+        rx_vertices.data_ptr(),
+        mirrors.data_ptr(),
+        cand_tris.data_ptr(),
+        mesh.data_ptr(),
+        chunk_box.data_ptr(),
+        tile_box.data_ptr(),
+        order,
+        tpm,
+        num_tx,
+        num_cand,
+        num_rx,
+        num_chunks,
+        epsilon,
+        hit_tol,
+        1.0 - 2.0 * hit_tol,
+        min_len,
+        vertices.data_ptr(),
+        mask.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    LAUNCHES += 1
+    check_launch("differt_trace", status)
+    return vertices, mask

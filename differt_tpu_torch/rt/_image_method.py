@@ -1,0 +1,97 @@
+"""Image-method specular path solver (port of ``differt_tpu.rt._image_method``).
+
+The forward pass computes consecutive mirror images of the source; the
+backward pass intersects segments toward those images with each mirror
+plane, last mirror first. The JAX ``scan``s become loops over the (few)
+mirrors, vectorized over the batch.
+"""
+
+import torch
+
+from ..geometry._vectors import _dot
+
+
+def sign(x: torch.Tensor) -> torch.Tensor:
+    """``sign`` with ``sign(0) = 0`` and NaN kept NaN, as ``jnp.sign``.
+
+    ``torch.sign`` maps NaN to 0, which would make a NaN compare equal to 0.
+    """
+    return torch.where(torch.isnan(x), x, torch.sign(x))
+
+
+def image_method(
+    from_vertex: torch.Tensor,
+    to_vertex: torch.Tensor,
+    mirror_vertices: torch.Tensor,
+    mirror_normals: torch.Tensor,
+) -> torch.Tensor:
+    """Specular path points through an ordered list of mirrors.
+
+    Broadcasts ``from_vertex [*, 3]``, ``to_vertex [*, 3]`` and the mirrors
+    ``[*, num_mirrors, 3]``; returns ``[*batch, num_mirrors, 3]``.
+    Impossible configurations (a segment parallel to a mirror it should
+    cross) come out as ``inf`` vertices.
+
+    >>> import torch
+    >>> image_method(
+    ...     torch.tensor([0.0, 0.0, 1.0]),
+    ...     torch.tensor([2.0, 0.0, 1.0]),
+    ...     torch.tensor([[1.0, 0.0, 0.0]]),
+    ...     torch.tensor([[0.0, 0.0, 1.0]]),
+    ... ).tolist()
+    [[1.0, 0.0, 0.0]]
+    """
+    num_mirrors = mirror_vertices.shape[-2]
+    batch = torch.broadcast_shapes(
+        from_vertex.shape[:-1],
+        to_vertex.shape[:-1],
+        mirror_vertices.shape[:-2],
+        mirror_normals.shape[:-2],
+    )
+    if num_mirrors == 0:
+        return torch.empty((*batch, 0, 3), dtype=from_vertex.dtype, device=from_vertex.device)
+
+    images = []
+    image = from_vertex
+    for b in range(num_mirrors):
+        mv = mirror_vertices[..., b, :]
+        n = mirror_normals[..., b, :]
+        offset = _dot(image - mv, n)[..., None]
+        image = image - 2.0 * offset * n
+        images.append(image)
+
+    points = [None] * num_mirrors
+    point = to_vertex
+    for b in reversed(range(num_mirrors)):
+        mv = mirror_vertices[..., b, :]
+        n = mirror_normals[..., b, :]
+        # inf - inf would be NaN: intersect from 0 and restore inf after.
+        invalid = torch.isinf(point)
+        safe = torch.where(invalid, torch.zeros_like(point), point)
+        direction = images[b] - safe
+        dn = _dot(direction, n)[..., None]
+        vn = _dot(mv - safe, n)[..., None]
+        parallel = dn == 0.0
+        t = vn / torch.where(parallel, torch.ones_like(dn), dn)
+        hit = safe + direction * t
+        hit = torch.where(parallel & (vn != 0.0), torch.full_like(hit, torch.inf), hit)
+        point = torch.where(invalid, torch.full_like(hit, torch.inf), hit)
+        points[b] = point.expand(*batch, 3)
+    return torch.stack(points, dim=-2)
+
+
+def consecutive_vertices_are_on_same_side_of_mirror(
+    vertices: torch.Tensor,
+    mirror_vertices: torch.Tensor,
+    mirror_normals: torch.Tensor,
+) -> torch.Tensor:
+    """Whether the vertices around each mirror lie on the same side of it.
+
+    ``vertices [*, num_mirrors + 2, 3]``; returns ``[*, num_mirrors]`` bool.
+    """
+    if vertices.shape[-2] != mirror_vertices.shape[-2] + 2:
+        msg = "'vertices' must hold two more points than there are mirrors."
+        raise TypeError(msg)
+    dot_prev = _dot(vertices[..., :-2, :] - mirror_vertices, mirror_normals)
+    dot_next = _dot(vertices[..., 2:, :] - mirror_vertices, mirror_normals)
+    return sign(dot_prev) == sign(dot_next)

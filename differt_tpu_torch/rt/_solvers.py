@@ -1,0 +1,239 @@
+"""Exhaustive specular path tracing (port of ``differt_tpu.rt._solvers``, hard-mask subset).
+
+Candidates are decoded from the closed-form index mapping; each batch of
+candidates goes through the image method, four geometric checks and the
+blockage test. On CUDA tensors with ``order >= 1`` the whole pipeline runs
+in the fused trace kernel; otherwise it runs unfused, with its blockage
+test on the any-hit kernel (CUDA) or its plain version (CPU).
+"""
+
+import dataclasses
+
+import torch
+
+from ..geometry._candidates import generate_path_candidates
+from ..geometry._mesh import Mesh
+from ..geometry._paths import TracedPaths
+from ..geometry._vectors import _dot, assemble_path
+from ._image_method import consecutive_vertices_are_on_same_side_of_mirror, image_method
+from ._triangle import F32_EPS, ray_intersect_triangle
+
+
+def candidate_geometry(
+    mesh: Mesh, path_candidates: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The mirrors of ``[C, order]`` candidates, as the trace kernel takes them.
+
+    Returns the triangle indices ``[C, k * order]`` (each quad expanded to
+    its two triangles, ``k = 2``; ``k = 1`` otherwise), their vertices
+    ``[C, k * order, 3, 3]``, and each mirror's vertex and unit normal
+    ``[C, order, 3]``, all contiguous.
+    """
+    num_candidates, order = path_candidates.shape
+    k = 2 if mesh.assume_quads else 1
+    if mesh.assume_quads:
+        path_candidates = torch.repeat_interleave(path_candidates, 2, dim=-1)
+        path_candidates[..., 1::2] += 1
+    triangles = mesh.triangles[path_candidates].reshape(num_candidates, k * order, 3)
+    triangle_vertices = mesh.vertices[triangles].reshape(num_candidates, k * order, 3, 3)
+    mirror_vertices = triangle_vertices[..., ::k, 0, :].contiguous()
+    mirror_normals = mesh.normals[path_candidates[..., ::k]].contiguous()
+    return path_candidates, triangle_vertices, mirror_vertices, mirror_normals
+
+
+def trace_path_candidates(
+    mesh: Mesh,
+    tx_vertices: torch.Tensor,
+    rx_vertices: torch.Tensor,
+    path_candidates: torch.Tensor,
+    interaction_types: torch.Tensor | None = None,
+    *,
+    epsilon: float | None = None,
+    hit_tol: float | None = None,
+    min_len: float | None = None,
+    megakernel: bool | None = None,
+) -> TracedPaths:
+    """Trace and validate exact specular paths for a batch of candidates.
+
+    ``tx_vertices [Ntx, 3]``, ``rx_vertices [Nrx, 3]``, ``path_candidates
+    [C, order]`` primitive indices. Returns paths of batch shape
+    ``[Ntx, Nrx, C]``. ``megakernel=None`` picks the fused trace kernel when
+    the tensors are on CUDA and ``order >= 1``; ``False`` forces the unfused
+    pipeline; ``True`` forces the fused kernel's contract (its plain version
+    on CPU). Validity masks are hard; the smoothed checks are ROADMAP A5.
+    """
+    if min_len is None:
+        min_len = 10.0 * F32_EPS
+
+    num_tx = tx_vertices.shape[0]
+    num_rx = rx_vertices.shape[0]
+    num_candidates, order = path_candidates.shape
+    path_candidates, triangle_vertices, mirror_vertices, mirror_normals = (
+        candidate_geometry(mesh, path_candidates)
+    )
+    k = 2 if mesh.assume_quads else 1
+    active_rays = None
+    if mesh.mask is not None:
+        active_rays = mesh.mask[path_candidates].all(dim=-1)
+
+    if megakernel is None:
+        megakernel = tx_vertices.device.type == "cuda" and order >= 1 and num_candidates > 0
+    if megakernel:
+        if order < 1:
+            msg = "The fused trace kernel needs order >= 1."
+            raise ValueError(msg)
+        from ..ops._trace import trace_specular_cuda
+
+        vertices, mask = trace_specular_cuda(
+            tx_vertices.contiguous(),
+            rx_vertices.contiguous(),
+            mirror_vertices,
+            mirror_normals,
+            triangle_vertices,
+            mesh.triangle_vertices.contiguous(),
+            mesh.mask,
+            order=order,
+            epsilon=10.0 * F32_EPS if epsilon is None else float(epsilon),
+            hit_tol=100.0 * F32_EPS if hit_tol is None else float(hit_tol),
+            min_len=float(min_len),
+        )
+        # [tx, cand, rx, ...] -> [tx, rx, cand, ...]
+        full_paths = vertices.transpose(1, 2)
+        mask = mask.transpose(1, 2)
+        if active_rays is not None:
+            mask = mask & active_rays
+        return _assemble_traced_paths(
+            full_paths, mask, path_candidates, interaction_types, k,
+            num_tx, num_rx, num_candidates, order,
+        )
+
+    paths = image_method(
+        tx_vertices[:, None, None, :],
+        rx_vertices[None, :, None, :],
+        mirror_vertices,
+        mirror_normals,
+    )
+    full_paths = assemble_path(
+        tx_vertices[:, None, None, :], paths, rx_vertices[None, :, None, :]
+    )
+    ray_origins = full_paths[..., :-1, :]
+    ray_directions = full_paths[..., 1:, :] - full_paths[..., :-1, :]
+
+    # Check 1: reflection points lie inside their triangles (or either
+    # triangle of the quad).
+    hits = ray_intersect_triangle(
+        torch.repeat_interleave(ray_origins[..., :-1, :], k, dim=-2),
+        torch.repeat_interleave(ray_directions[..., :-1, :], k, dim=-2),
+        triangle_vertices,
+        epsilon=epsilon,
+    )[1]
+    inside = hits.reshape(num_tx, num_rx, num_candidates, order, k).any(dim=-1).all(dim=-1)
+
+    # Check 2: consecutive vertices on the same side of each mirror.
+    valid_reflections = consecutive_vertices_are_on_same_side_of_mirror(
+        full_paths, mirror_vertices, mirror_normals
+    ).all(dim=-1)
+
+    # Check 4: no degenerate (too short) segment.
+    too_small = (_dot(ray_directions, ray_directions) < min_len).any(dim=-1)
+
+    # Check 5: finiteness (the image method emits inf for impossible paths).
+    is_finite = torch.isfinite(full_paths).all(dim=-1).all(dim=-1)
+    full_paths = torch.where(is_finite[..., None, None], full_paths, 0.0)
+
+    # Check 3, last on purpose: only the paths that survived the cheap
+    # checks take the blockage test (the others are inactive rays). As in
+    # the reference, the blockage test keeps its default epsilon.
+    alive = inside & valid_reflections & ~too_small & is_finite
+    blocked = mesh.ray_intersect_any_triangle(
+        ray_origins,
+        ray_directions,
+        hit_tol=hit_tol,
+        active_rays=alive[..., None],
+    ).any(dim=-1)
+
+    mask = alive & ~blocked
+    if active_rays is not None:
+        mask = mask & active_rays
+    return _assemble_traced_paths(
+        full_paths, mask, path_candidates, interaction_types, k,
+        num_tx, num_rx, num_candidates, order,
+    )
+
+
+def _assemble_traced_paths(
+    full_paths: torch.Tensor,
+    mask: torch.Tensor,
+    path_candidates: torch.Tensor,
+    interaction_types: torch.Tensor | None,
+    k: int,
+    num_tx: int,
+    num_rx: int,
+    num_candidates: int,
+    order: int,
+) -> TracedPaths:
+    """Attach object indices and interaction types to traced geometry."""
+    device = path_candidates.device
+    dtype = path_candidates.dtype
+    shape = (num_tx, num_rx, num_candidates)
+    tx_objects = torch.arange(num_tx, dtype=dtype, device=device)[:, None, None, None]
+    rx_objects = torch.arange(num_rx, dtype=dtype, device=device)[None, :, None, None]
+    objects = torch.cat(
+        (
+            tx_objects.expand(*shape, 1),
+            path_candidates[:, ::k].expand(*shape, order),
+            rx_objects.expand(*shape, 1),
+        ),
+        dim=-1,
+    )
+    if interaction_types is None:
+        out_types = torch.zeros((*shape, order), dtype=torch.int32, device=device)
+    else:
+        out_types = interaction_types.expand(*shape, order)
+    return TracedPaths(
+        full_paths,
+        objects,
+        mask=mask,
+        interaction_types=out_types,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class ExhaustivePathTracer:
+    """Exhaustive image-method tracer over all candidates (hard masks)."""
+
+    epsilon: float | None = None
+    """Tolerance for ray / object intersection checks."""
+    hit_tol: float | None = None
+    """Hit-distance tolerance when testing path segments for blockage."""
+    min_len: float | None = None
+    """Minimal (squared) segment length for a valid path."""
+    megakernel: bool | None = None
+    """Force the fused trace kernel on or off (None = on for CUDA, order >= 1)."""
+
+    def generate_path_candidates(
+        self, scene, order: int
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """All ``[C, order]`` candidates of the scene's mesh and their (zero) types."""
+        mesh = scene.mesh
+        candidates = generate_path_candidates(
+            mesh.num_primitives, order, device=mesh.device
+        )
+        if mesh.assume_quads:
+            candidates = 2 * candidates
+        return candidates, torch.zeros_like(candidates, dtype=torch.int32)
+
+    def trace_path_candidates(
+        self, scene, path_candidates: torch.Tensor, interaction_types: torch.Tensor
+    ) -> TracedPaths:
+        return trace_path_candidates(
+            scene.mesh,
+            scene.transmitters.reshape(-1, 3),
+            scene.receivers.reshape(-1, 3),
+            path_candidates,
+            interaction_types=interaction_types,
+            epsilon=self.epsilon,
+            hit_tol=self.hit_tol,
+            min_len=self.min_len,
+            megakernel=self.megakernel,
+        )

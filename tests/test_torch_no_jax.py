@@ -1,0 +1,39 @@
+"""The port imports and runs with JAX made unimportable."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+_PROGRAM = r"""
+import sys
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+import torch
+torch.set_num_threads(1)
+import differt_tpu_torch
+from differt_tpu_torch.coverage import power_map
+from differt_tpu_torch.geometry import Scene
+from differt_tpu_torch.scenes import street_canyon_scene
+
+scene = Scene(
+    transmitters=torch.tensor([[-30.0, 0.0, 20.0]]), mesh=street_canyon_scene().mesh
+).with_receivers_grid(8, 8)
+power = power_map(scene, 2.4e9, order=1)
+assert power.shape == (1, 8, 8), power.shape
+assert bool(torch.isfinite(power).all()) and float(power.max()) > 0.0
+assert not any(name == "jax" or name.startswith(("jax.", "differt_tpu.")) for name in sys.modules if sys.modules[name] is not None)
+print("ok")
+"""
+
+
+def test_port_runs_without_jax() -> None:
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROGRAM],
+        cwd=root,
+        capture_output=True,
+        text=True,
+        timeout=300,
+        check=False,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")

@@ -1,0 +1,85 @@
+"""Shared helpers for the parity tests of the PyTorch port against the JAX package.
+
+Both packages get the same inputs: a JAX scene crosses over as a dict of
+numpy arrays (``differt_tpu_torch.interop``), and random inputs come from
+``numpy.random.default_rng``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from differt_tpu_torch.interop import scene_from_numpy
+
+F32_EPS = float(np.finfo(np.float32).eps)
+EPSILON = 10.0 * F32_EPS
+HIT_TOL = 100.0 * F32_EPS
+
+
+def _np(x):
+    return None if x is None else np.asarray(x)
+
+
+def jax_scene_fields(scene) -> dict:
+    """The fields of a JAX ``Scene`` as the dict that ``interop`` takes."""
+    mesh = scene.mesh
+    return {
+        "transmitters": _np(scene.transmitters),
+        "receivers": _np(scene.receivers),
+        "mesh": {
+            "vertices": _np(mesh.vertices),
+            "triangles": _np(mesh.triangles),
+            "face_materials": _np(mesh.face_materials),
+            "material_names": mesh.material_names,
+            "mask": _np(mesh.mask),
+            "object_bounds": _np(mesh.object_bounds),
+            "assume_quads": mesh.assume_quads,
+        },
+    }
+
+
+def to_torch_scene(scene, device: str = "cpu"):
+    """Carry a JAX scene across to the port."""
+    return scene_from_numpy(jax_scene_fields(scene), device=device)
+
+
+def assert_maps_close(port, ref, *, window_db: float = 40.0, tol_db: float = 0.1) -> None:
+    """Power maps agree to ``tol_db`` on every pixel within ``window_db`` of the maximum."""
+    port = np.asarray(port, dtype=np.float64)
+    ref = np.asarray(ref, dtype=np.float64)
+    assert port.shape == ref.shape
+    assert np.isfinite(port).all()
+    peak = ref.max()
+    assert peak > 0.0
+    lit = ref >= peak * 10.0 ** (-window_db / 10.0)
+    assert lit.any()
+    with np.errstate(divide="ignore"):
+        err = np.abs(10.0 * np.log10(port[lit]) - 10.0 * np.log10(ref[lit]))
+    assert err.max() <= tol_db, f"max error {err.max():.4f} dB over {lit.sum()} pixels"
+
+
+def random_segments(bbox: np.ndarray, num: int, seed: int):
+    """Segments between uniform points of the (slightly grown) bounding box.
+
+    Returns float32 ``(start, direction)`` and an ``active`` mask holding
+    about 80% of the segments.
+    """
+    rng = np.random.default_rng(seed)
+    lo, hi = bbox[0] - 5.0, bbox[1] + 5.0
+    lo[2], hi[2] = 0.5, bbox[1][2] + 10.0
+    start = rng.uniform(lo, hi, (num, 3)).astype(np.float32)
+    end = rng.uniform(lo, hi, (num, 3)).astype(np.float32)
+    active = rng.random(num) >= 0.2
+    return start, (end - start).astype(np.float32), active
+
+
+def triangle_mask(num: int, seed: int) -> np.ndarray:
+    """A random active-triangle mask holding about 70% of the triangles."""
+    return np.random.default_rng(seed).random(num) >= 0.3
+
+
+def cuda_or_skip() -> torch.device:
+    """The CUDA device, or skip (decided when the test runs, never at import)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the GPU host")
+    return torch.device("cuda")
