@@ -1,11 +1,14 @@
 """differt_tpu_torch: the PyTorch + CUDA port of differt_tpu, for NVIDIA Hopper.
 
-This slice covers the forward coverage map of orders 0, 1 and 2 with hard
-validity masks: meshes and scenes, candidate decoding, image-method tracing
-with its checks, the slab-Fresnel Jones chain and chunked power maps. Two
-hand-written CUDA kernels carry it on the card (``csrc/anyhit.cu`` and
-``csrc/trace.cu``); each has a plain PyTorch version, which CPU tensors
-use. The package never imports JAX.
+It covers two paths. Coverage: the forward coverage map of orders 0, 1
+and 2 with hard validity masks (meshes and scenes, candidate decoding,
+image-method tracing with its checks, the slab-Fresnel Jones chain and
+chunked power maps). Ray launching: SBR (``Scene.launch_paths``), the
+multipath lifetime map (``Scene.compute_tx_mlm``) and the differentiable
+closest hit. Three hand-written CUDA kernels carry them on the card
+(``csrc/anyhit.cu``, ``csrc/trace.cu``, ``csrc/closest.cu``); each has a
+plain PyTorch version, which CPU tensors use (``ops.set_backend`` picks
+otherwise). The package never imports JAX.
 """
 
 from . import coverage, em, geometry, interop, ops, rt, scenes, utils

@@ -1,6 +1,6 @@
-// Device functions shared by the any-hit and fused trace kernels (and, later,
-// closest-hit): Möller–Trumbore, the conservative slab test, and the any-hit
-// sweep over a Morton-sorted mesh with two levels of AABB culling.
+// Device functions shared by the any-hit, closest-hit and fused trace kernels:
+// Möller–Trumbore, the conservative slab test, and the any-hit and closest-hit
+// sweeps over a Morton-sorted mesh with two levels of AABB culling.
 //
 // Float semantics follow the JAX reference op for op (differt_tpu/ops/
 // _pallas_rt.py::_mt_chunk and ::_slab_overlap): the library is built with
@@ -17,6 +17,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 namespace differt {
 
@@ -122,6 +123,51 @@ __device__ inline bool any_hit(Vec3 o, Vec3 d, float thresh, const float4* __res
     }
   }
   return false;
+}
+
+// Nearest active triangle hit by o + t d with t > eps: returns its position in
+// the sorted mesh and writes its t, or returns -1 and writes +inf. Tiles and
+// chunks whose box lies beyond the best t so far are skipped. The contract of
+// the reference kernel (_pallas_rt.py::_closest_kernel): within a chunk the
+// first minimum wins; across chunks an equal t in the later chunk wins.
+__device__ inline int closest_hit(Vec3 o, Vec3 d, const float4* __restrict__ mesh,
+                                  const float4* __restrict__ chunk_box,
+                                  const float4* __restrict__ tile_box, int num_chunks, float eps,
+                                  float* t_out) {
+  const Vec3 inv_d = {slab_inv(d.x), slab_inv(d.y), slab_inv(d.z)};
+  const int num_tiles = (num_chunks + kChunksPerTile - 1) / kChunksPerTile;
+  float best_t = CUDART_INF_F;
+  int best = -1;
+  for (int tile = 0; tile < num_tiles; ++tile) {
+    const float4* tb = tile_box + 2 * tile;
+    if (__ldg(&tb[0].w) == 0.0f || !slab_overlap(o, inv_d, tb, best_t)) continue;
+    const int chunk_end = min(num_chunks, (tile + 1) * kChunksPerTile);
+    for (int chunk = tile * kChunksPerTile; chunk < chunk_end; ++chunk) {
+      const float4* cb = chunk_box + 2 * chunk;
+      if (__ldg(&cb[0].w) == 0.0f || !slab_overlap(o, inv_d, cb, best_t)) continue;
+      const float4* tri = mesh + 3 * kChunk * chunk;
+      float chunk_t = CUDART_INF_F;
+      int chunk_arg = -1;
+      for (int j = 0; j < kChunk; ++j, tri += 3) {
+        const float4 a = __ldg(tri);
+        const float4 b = __ldg(tri + 1);
+        const float4 c = __ldg(tri + 2);
+        if (c.y == 0.0f) continue;  // Inactive or padding.
+        float t;
+        const bool hit = mt_hit(o, d, {a.x, a.y, a.z}, {a.w, b.x, b.y}, {b.z, b.w, c.x}, eps, &t);
+        if (hit && t < chunk_t) {
+          chunk_t = t;
+          chunk_arg = kChunk * chunk + j;
+        }
+      }
+      if (chunk_arg >= 0 && chunk_t <= best_t) {
+        best_t = chunk_t;
+        best = chunk_arg;
+      }
+    }
+  }
+  *t_out = best_t;
+  return best;
 }
 
 }  // namespace differt

@@ -1,0 +1,144 @@
+"""Ray-launching lattice and viewing frustum (PyTorch port of ``differt_tpu.geometry._lattice``)."""
+
+import math
+
+import torch
+
+from ._vectors import cartesian_to_spherical, spherical_to_cartesian
+
+_INV_PHI = 2.0 / (1.0 + math.sqrt(5.0))  # golden-ratio conjugate, 1/phi
+
+# (i / phi) mod 1 in float32 loses the azimuths of a large lattice: at
+# i ~ 10^7 the product carries ~6 fractional bits. The Fibonacci ladder of
+# the JAX package restores them: F_m / phi = F_{m-1} - (-1/phi)^m, so
+# taking q * F_m off the index shifts frac(i / phi) by the exactly known,
+# tiny defect q * (-(-1/phi)^m), and the residual index (< 13) times 1/phi
+# is exact in float32.
+_FIB_LADDER: tuple[tuple[float, float], ...] = tuple(
+    (float(fib), -((-_INV_PHI) ** m))
+    for fib, m in ((832040, 30), (10946, 21), (144, 12), (13, 7))
+)
+
+
+def _golden_fractions(i: torch.Tensor) -> torch.Tensor:
+    """Fractional part of ``i / phi``, accurate in float32 up to ``i < 2**24``."""
+    frac = torch.zeros_like(i)
+    for fib, defect in _FIB_LADDER:
+        q = torch.floor(i / fib)
+        i = i - q * fib
+        frac = frac + q * defect
+    return (frac + i * _INV_PHI) % 1.0
+
+
+def fibonacci_lattice(
+    n: int,
+    dtype: torch.dtype | None = None,
+    *,
+    frustum: torch.Tensor | None = None,
+    device: torch.device | str | None = None,
+) -> torch.Tensor:
+    """Quasi-uniform lattice of ``n`` unit vectors on the sphere, ``[n, 3]``.
+
+    With ``frustum`` (min and max rows of ``(polar, azimuth)``; a leading
+    radial column is ignored), the points are spread uniformly in solid
+    angle within it, on the frustum's device and dtype.
+
+    >>> pts = fibonacci_lattice(100)
+    >>> tuple(pts.shape), bool(((pts * pts).sum(-1) - 1.0).abs().max() < 1e-6)
+    ((100, 3), True)
+    """
+    if n <= 0:
+        msg = f"fibonacci_lattice needs a strictly positive size, got n={n}."
+        raise ValueError(msg)
+    if frustum is not None:
+        dtype = frustum.dtype
+        device = frustum.device
+    elif dtype is not None and not dtype.is_floating_point:
+        msg = f"fibonacci_lattice needs a floating dtype, got {dtype!r}."
+        raise ValueError(msg)
+
+    i = torch.arange(n, dtype=torch.float32, device=device)
+    frac = _golden_fractions(i)
+
+    if frustum is not None:
+        # Uniform steps in cos(polar) are equal steps of solid angle; the
+        # golden fractions spread the azimuths over the frustum's span.
+        polar_lo, polar_hi = frustum[:, -2]
+        azim_lo, azim_hi = frustum[:, -1]
+        step = i / (n - 1) if n > 1 else i
+        cos_polar = torch.cos(polar_lo) * (1.0 - step) + torch.cos(polar_hi) * step
+        polar = torch.arccos(cos_polar)
+        azimuth = azim_lo * (1.0 - frac) + azim_hi * frac
+    else:
+        polar = torch.arccos(1.0 - 2.0 * i / n)
+        azimuth = 2.0 * math.pi * frac
+
+    xyz = spherical_to_cartesian(torch.stack((polar, azimuth), dim=-1))
+    return xyz.to(dtype) if dtype is not None else xyz
+
+
+def _masked_min(x, mask, initial: float, dims):
+    # jnp.min(x, where=mask, initial=initial): the initial value takes part.
+    if mask is not None:
+        x = torch.where(mask, x, initial)
+    return x.amin(dim=dims).clamp(max=initial)
+
+
+def _masked_max(x, mask, initial: float, dims):
+    if mask is not None:
+        x = torch.where(mask, x, initial)
+    return x.amax(dim=dims).clamp(min=initial)
+
+
+def viewing_frustum(
+    viewing_vertex: torch.Tensor,
+    world_vertices: torch.Tensor,
+    *,
+    active_vertices: torch.Tensor | None = None,
+    reduce: bool = False,
+) -> torch.Tensor:
+    """Spherical bounding frustum of ``world_vertices`` seen from ``viewing_vertex``.
+
+    ``viewing_vertex`` is ``[*batch, 3]``, ``world_vertices`` ``[*batch,
+    num_vertices, 3]`` (broadcasting). Returns ``[*batch, 2, 3]``: min and
+    max rows of ``(r, polar, azimuth)`` (``[2, 3]`` over everything with
+    ``reduce``). The azimuth bounds are taken in ``[-pi, pi)`` and in
+    ``[0, 2 pi)`` and the narrower span wins; above 270 degrees in both,
+    the full circle. A degenerate polar band is widened toward the pole
+    that gives the smaller span.
+    """
+    rpa = cartesian_to_spherical(world_vertices - viewing_vertex[..., None, :])
+    r, p, a = rpa[..., 0], rpa[..., 1], rpa[..., 2]
+    mask = active_vertices
+    dims = tuple(range(r.ndim)) if reduce else -1
+    pi, two_pi = math.pi, 2.0 * math.pi
+
+    r_min = _masked_min(r, mask, math.inf, dims)
+    r_max = _masked_max(r, mask, 0.0, dims)
+    p_min = _masked_min(p, mask, pi, dims)
+    p_max = _masked_max(p, mask, 0.0, dims)
+
+    a_min = _masked_min(a, mask, pi, dims)
+    a_max = _masked_max(a, mask, -pi, dims)
+    a_shifted = (a + two_pi) % two_pi
+    a0_min = _masked_min(a_shifted, mask, two_pi, dims)
+    a0_max = _masked_max(a_shifted, mask, 0.0, dims)
+
+    width = a_max - a_min
+    width0 = a0_max - a0_min
+    use_shifted = width > width0
+    a_min = torch.where(use_shifted, a0_min, a_min)
+    a_max = torch.where(use_shifted, a0_max, a_max)
+    # Geometry all around the viewer: the full circle.
+    full_circle = torch.minimum(width, width0) > 1.5 * pi
+    a_min = torch.where(full_circle, -pi, a_min)
+    a_max = torch.where(full_circle, pi, a_max)
+
+    p_min_dn = torch.where(p_min == p_max, 0.0, p_min)
+    p_max_up = torch.where(p_min == p_max, pi, p_max)
+    widen_up = (p_max - p_min_dn) > (p_max_up - p_min)
+    p_lo = torch.where(widen_up, p_min, p_min_dn)
+    p_hi = torch.where(widen_up, p_max_up, p_max)
+
+    out = torch.stack((r_min, p_lo, a_min, r_max, p_hi, a_max), dim=-1)
+    return out.reshape(*out.shape[:-1], 2, 3)

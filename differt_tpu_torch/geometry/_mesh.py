@@ -277,3 +277,26 @@ class Mesh:
         return dispatch_ray_intersect_any_triangle(
             self, ray_origins, ray_directions, **kwargs
         )
+
+    def first_triangle_hit_by_ray(
+        self,
+        ray_origins: torch.Tensor,
+        ray_directions: torch.Tensor,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Closest-hit query: ``(index, t)`` of the first active triangle hit, or ``(-1, inf)``.
+
+        The index (int64) carries no gradient; ``t`` is differentiable with
+        respect to :attr:`vertices` and the rays (the backward recomputes it
+        from the frozen hit triangle). On CUDA tensors it runs the
+        hand-written closest-hit kernel; on CPU tensors its plain PyTorch
+        version (see :mod:`..ops._dispatch`).
+
+        >>> import torch
+        >>> box = Mesh.box(with_top=True)
+        >>> index, t = box.first_triangle_hit_by_ray(torch.zeros(3), torch.tensor([1.0, 0, 0]))
+        >>> float(t)
+        0.5
+        """
+        from ..ops import dispatch_first_triangle_hit_by_ray
+
+        return dispatch_first_triangle_hit_by_ray(self, ray_origins, ray_directions)

@@ -53,6 +53,39 @@ def orthogonal_basis(u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return v, w
 
 
+def cartesian_to_spherical(xyz: torch.Tensor) -> torch.Tensor:
+    """Cartesian to spherical ``(r, polar, azimuth)``.
+
+    The polar angle lies in ``[0, pi]`` from +z, the azimuth in ``[-pi, pi]``
+    (``atan2``); a zero vector has a polar angle of ``pi / 2``.
+
+    >>> import torch
+    >>> [round(x, 6) for x in cartesian_to_spherical(torch.tensor([0.0, 2.0, 0.0])).tolist()]
+    [2.0, 1.570796, 1.570796]
+    """
+    r = torch.sqrt(_dot(xyz, xyz))
+    r_safe = torch.where(r == 0.0, torch.ones_like(r), r)
+    polar = torch.arccos(xyz[..., 2] / r_safe)
+    azimuth = torch.atan2(xyz[..., 1], xyz[..., 0])
+    return torch.stack((r, polar, azimuth), dim=-1)
+
+
+def spherical_to_cartesian(rpa: torch.Tensor) -> torch.Tensor:
+    """Spherical ``(r, polar, azimuth)``, or ``(polar, azimuth)`` with ``r = 1``, to Cartesian.
+
+    >>> import math, torch
+    >>> [round(x, 6) + 0.0 for x in spherical_to_cartesian(torch.tensor([math.pi / 2, 0.0])).tolist()]
+    [1.0, 0.0, 0.0]
+    """
+    p = rpa[..., -2]
+    a = rpa[..., -1]
+    sp = torch.sin(p)
+    xyz = torch.stack((sp * torch.cos(a), sp * torch.sin(a), torch.cos(p)), dim=-1)
+    if rpa.shape[-1] == 3:
+        xyz = xyz * rpa[..., 0, None]
+    return xyz
+
+
 def assemble_path(
     from_vertex: torch.Tensor,
     intermediate_vertices: torch.Tensor,

@@ -1,14 +1,24 @@
 """Hand-written Hopper kernels, their plain PyTorch versions, and dispatch.
 
 - :mod:`._rt`: any-hit (``csrc/anyhit.cu``) and the shared mesh preparation.
+- :mod:`._closest`: closest-hit (``csrc/closest.cu``).
 - :mod:`._trace`: the fused specular trace (``csrc/trace.cu``).
 - :mod:`._build`: builds the CUDA sources with ``nvcc`` at first use.
+- :mod:`._dispatch`: the backend switch and the mesh-level entry points.
 
 Each wrapper takes its plain version for CPU tensors only; for CUDA
-tensors it launches its kernel or raises.
+tensors it launches its kernel or raises. :func:`set_backend` picks the
+plain versions on any device (``"torch"``) or insists on the kernels
+(``"cuda"``).
 """
 
-from ._dispatch import dispatch_ray_intersect_any_triangle
+from ._closest import first_triangle_hit_by_ray_cuda, first_triangle_hit_by_ray_reference
+from ._dispatch import (
+    dispatch_first_triangle_hit_by_ray,
+    dispatch_ray_intersect_any_triangle,
+    get_backend,
+    set_backend,
+)
 from ._rt import (
     morton_perm_points,
     ray_intersect_any_triangle_cuda,
@@ -17,10 +27,15 @@ from ._rt import (
 from ._trace import trace_specular_cuda, trace_specular_reference
 
 __all__ = (
+    "dispatch_first_triangle_hit_by_ray",
     "dispatch_ray_intersect_any_triangle",
+    "first_triangle_hit_by_ray_cuda",
+    "first_triangle_hit_by_ray_reference",
+    "get_backend",
     "morton_perm_points",
     "ray_intersect_any_triangle_cuda",
     "ray_intersect_any_triangle_reference",
+    "set_backend",
     "trace_specular_cuda",
     "trace_specular_reference",
 )

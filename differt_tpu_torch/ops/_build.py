@@ -20,7 +20,7 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("anyhit.cu", "trace.cu")
+SOURCES = ("anyhit.cu", "closest.cu", "trace.cu")
 HEADERS = ("mt.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -40,6 +40,7 @@ _F = ctypes.c_float
 # C signatures of csrc/*.cu (every pointer, and the stream, as c_void_p).
 _SIGNATURES = {
     "differt_anyhit": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P),
+    "differt_closest": (_P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P),
     "differt_trace": (
         (_P,) * 7 + (_I,) * 6 + (_F,) * 4 + (_P, _P, _P)
     ),

@@ -1,20 +1,69 @@
-"""Mesh-level any-hit test (PyTorch port of ``differt_tpu.ops._dispatch``, any-hit part).
+"""Backend switch and mesh-level ray casting (PyTorch port of ``differt_tpu.ops._dispatch``).
 
-The contract of the reference: an empty mesh blocks nothing; inactive rays
-are sanitized to 0 and never reported blocked; ``hit_tol`` defaults to
-``100 * eps(float32)``; each origin moves by ``d * hit_tol`` and the hit
-threshold is ``1 - 2 * hit_tol``, so segments do not hit the faces they
-start or end on.
+Backends (:func:`set_backend`): ``"auto"`` (the default) launches the
+hand-written kernels on CUDA tensors and runs their plain PyTorch versions
+on CPU tensors; ``"cuda"`` always launches the kernels (CPU tensors raise);
+``"torch"`` always runs the plain versions, on any device. These are the
+port's names for the JAX package's ``"auto"``, ``"pallas"`` and ``"jax"``.
 
-Inactive rays get a threshold of -1 (the kernel skips them at once). On
-CPU tensors the plain any-hit version honours the same thresholds, which
-is the reference's AND with ``active_rays``.
+The any-hit contract of the reference: an empty mesh blocks nothing;
+inactive rays are sanitized to 0 and never reported blocked; ``hit_tol``
+defaults to ``100 * eps(float32)``; each origin moves by ``d * hit_tol`` and
+the hit threshold is ``1 - 2 * hit_tol``, so segments do not hit the faces
+they start or end on. Inactive rays get a threshold of -1 (the kernel skips
+them at once); the plain version honours the same thresholds, which is the
+reference's AND with ``active_rays``.
+
+The closest-hit contract: an empty mesh gives ``(-1, inf)``; the index
+carries no gradient, and the distance is differentiable through a backward
+that recomputes ``t`` from the frozen hit triangle.
 """
 
 import torch
 
+from ..geometry._vectors import _cross, _dot
 from ..rt._triangle import F32_EPS
-from ._rt import ray_intersect_any_triangle_cuda
+from ._closest import first_triangle_hit_by_ray_cuda, first_triangle_hit_by_ray_reference
+from ._rt import ray_intersect_any_triangle_cuda, ray_intersect_any_triangle_reference
+
+_BACKENDS = ("auto", "cuda", "torch")
+_BACKEND = "auto"
+
+
+def set_backend(backend: str) -> None:
+    """Set the global ray-casting backend: ``"auto"``, ``"cuda"`` or ``"torch"``.
+
+    >>> set_backend("torch")
+    >>> get_backend()
+    'torch'
+    >>> set_backend("auto")
+    """
+    if backend not in _BACKENDS:
+        msg = f"Unknown backend {backend!r}, expected 'auto', 'cuda', or 'torch'."
+        raise ValueError(msg)
+    global _BACKEND
+    _BACKEND = backend
+
+
+def get_backend(device: torch.device | None = None) -> str:
+    """The backend as set or, given the tensors' ``device``, as it resolves there.
+
+    With a device, ``"auto"`` resolves to ``"cuda"`` for a CUDA device and
+    to ``"torch"`` otherwise, and ``"cuda"`` raises for a device that is
+    not CUDA.
+
+    >>> import torch
+    >>> get_backend(torch.device("cpu"))
+    'torch'
+    """
+    if device is None:
+        return _BACKEND
+    if _BACKEND == "auto":
+        return "cuda" if device.type == "cuda" else "torch"
+    if _BACKEND == "cuda" and device.type != "cuda":
+        msg = f"The 'cuda' backend needs CUDA tensors, got tensors on {device}."
+        raise ValueError(msg)
+    return _BACKEND
 
 
 def dispatch_ray_intersect_any_triangle(
@@ -50,7 +99,12 @@ def dispatch_ray_intersect_any_triangle(
     if active_rays is not None:
         hit_threshold = torch.where(active_rays, hit_threshold, -1.0)
 
-    out = ray_intersect_any_triangle_cuda(
+    anyhit = (
+        ray_intersect_any_triangle_cuda
+        if get_backend(ray_origins.device) == "cuda"
+        else ray_intersect_any_triangle_reference
+    )
+    out = anyhit(
         ray_origins.reshape(-1, 3).contiguous(),
         ray_directions.reshape(-1, 3).contiguous(),
         mesh.triangle_vertices.contiguous(),
@@ -59,3 +113,83 @@ def dispatch_ray_intersect_any_triangle(
         epsilon=epsilon,
     )
     return out.reshape(batch)
+
+
+def _recomputed_distance(
+    vertices: torch.Tensor,
+    ray_origins: torch.Tensor,
+    ray_directions: torch.Tensor,
+    hit_faces: torch.Tensor,
+    triangles: torch.Tensor,
+) -> torch.Tensor:
+    """Möller–Trumbore ``t`` of each ray for its (frozen) hit triangle."""
+    tv = vertices[triangles[hit_faces.clamp(min=0)]]
+    v0 = tv[:, 0, :]
+    edge1 = tv[:, 1, :] - v0
+    edge2 = tv[:, 2, :] - v0
+    det = _dot(_cross(ray_directions, edge2), edge1)
+    det = torch.where(det == 0.0, torch.inf, det)
+    q = _cross(ray_origins - v0, edge1)
+    t = _dot(q, edge2) / det
+    return torch.where(hit_faces != -1, t, torch.inf)
+
+
+class _FirstHit(torch.autograd.Function):
+    """Closest hit whose distance is differentiable (``_first_hit_helper`` of the reference).
+
+    The forward runs the kernel or its plain version; the backward
+    recomputes ``t`` from the frozen hit index, so that gradients reach the
+    vertices and the rays, and zeroes non-finite incoming gradients (misses).
+    """
+
+    @staticmethod
+    def forward(ctx, vertices, triangles, active, ray_origins, ray_directions, use_kernel):
+        closest = (
+            first_triangle_hit_by_ray_cuda if use_kernel else first_triangle_hit_by_ray_reference
+        )
+        idx, t = closest(
+            ray_origins, ray_directions, vertices[triangles].contiguous(), active
+        )
+        ctx.save_for_backward(vertices, triangles, ray_origins, ray_directions, idx)
+        ctx.mark_non_differentiable(idx)
+        return idx, t
+
+    @staticmethod
+    def backward(ctx, grad_idx, grad_t):
+        del grad_idx
+        vertices, triangles, ray_origins, ray_directions, idx = ctx.saved_tensors
+        grad_t = torch.where(torch.isfinite(grad_t), grad_t, 0.0)
+        with torch.enable_grad():
+            inputs = [x.detach().requires_grad_() for x in (vertices, ray_origins, ray_directions)]
+            t = _recomputed_distance(*inputs, idx, triangles)
+            g_vertices, g_origins, g_directions = torch.autograd.grad(t, inputs, grad_t)
+        return g_vertices, None, None, g_origins, g_directions, None
+
+
+def dispatch_first_triangle_hit_by_ray(
+    mesh,
+    ray_origins: torch.Tensor,
+    ray_directions: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Index (int64, no gradient) and differentiable distance of the first triangle hit.
+
+    Rays broadcast over ``[*batch, 3]``; returns two ``[*batch]`` tensors,
+    ``(-1, inf)`` where nothing active is hit.
+    """
+    batch = torch.broadcast_shapes(ray_origins.shape[:-1], ray_directions.shape[:-1])
+    device = ray_origins.device
+    if mesh.num_triangles == 0:
+        return (
+            torch.full(batch, -1, dtype=torch.int64, device=device),
+            torch.full(batch, torch.inf, dtype=mesh.vertices.dtype, device=device),
+        )
+    ray_origins, ray_directions = torch.broadcast_tensors(ray_origins, ray_directions)
+    idx, t = _FirstHit.apply(
+        mesh.vertices,
+        mesh.triangles,
+        mesh.mask,
+        ray_origins.reshape(-1, 3).contiguous(),
+        ray_directions.reshape(-1, 3).contiguous(),
+        get_backend(device) == "cuda",
+    )
+    return idx.reshape(batch), t.reshape(batch)

@@ -135,13 +135,14 @@ def _slab_overlap(o, d, box, t_hi) -> torch.Tensor:
     return tnear <= tfar
 
 
-def prepare_mesh(
+def sorted_mesh(
     triangle_vertices: torch.Tensor, active_triangles: torch.Tensor | None
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
-    """Morton-sorted mesh and culling boxes in the kernels' layout (``csrc/mt.cuh``).
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int, torch.Tensor]:
+    """:func:`prepare_mesh` and the Morton permutation it sorted the triangles by.
 
-    Returns ``(mesh [num_chunks * 64, 12], chunk_box [num_chunks, 8],
-    tile_box [num_tiles, 8], num_chunks)``, all float32 and contiguous.
+    The permutation ``perm [num_triangles]`` maps a position in the sorted
+    mesh to the triangle's index (the closest-hit wrapper maps its results
+    back through it).
     """
     num_tris = triangle_vertices.shape[0]
     device = triangle_vertices.device
@@ -174,7 +175,18 @@ def prepare_mesh(
         (soa.T, active[0, :, None].to(torch.float32), torch.zeros_like(soa[:2].T)),
         dim=-1,
     ).contiguous()
-    return mesh, boxes(chunk, any_active), boxes(tile, tile_active), padded // T_SUB
+    return mesh, boxes(chunk, any_active), boxes(tile, tile_active), padded // T_SUB, perm
+
+
+def prepare_mesh(
+    triangle_vertices: torch.Tensor, active_triangles: torch.Tensor | None
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """Morton-sorted mesh and culling boxes in the kernels' layout (``csrc/mt.cuh``).
+
+    Returns ``(mesh [num_chunks * 64, 12], chunk_box [num_chunks, 8],
+    tile_box [num_tiles, 8], num_chunks)``, all float32 and contiguous.
+    """
+    return sorted_mesh(triangle_vertices, active_triangles)[:4]
 
 
 def ray_intersect_any_triangle_reference(

@@ -1,10 +1,10 @@
-"""Memory-bounded any-hit scan over all triangles (port of ``differt_tpu.rt._scan``).
+"""Memory-bounded any-hit and closest-hit scans over all triangles (port of ``differt_tpu.rt._scan``).
 
-This is the plain form of the any-hit contract: peak memory is bounded at
-``batch * tile`` ray-triangle pairs by looping over triangle tiles. The
-any-hit kernel's plain version (``ops/_rt.py``) is built on
-:func:`any_hit_below`. Closest-hit and visibility are not ported yet
-(ROADMAP B3, A10).
+These are the plain forms of the any-hit and closest-hit contracts: peak
+memory is bounded at ``batch * tile`` ray-triangle pairs by looping over
+triangle tiles. The kernels' plain versions (``ops/_rt.py``,
+``ops/_closest.py``) are built on them. Visibility is not ported yet
+(ROADMAP A10).
 """
 
 import torch
@@ -84,3 +84,54 @@ def ray_intersect_any_triangle(
         epsilon=epsilon,
         tile=tile,
     )
+
+
+def first_triangle_hit_by_ray(
+    ray_origins: torch.Tensor,
+    ray_directions: torch.Tensor,
+    triangle_vertices: torch.Tensor,
+    active_triangles: torch.Tensor | None = None,
+    batch_size: int | None = 512,
+    *,
+    epsilon: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Index of and distance to the first (active) triangle hit by each ray.
+
+    Rays broadcast over ``[*batch, 3]``; ``triangle_vertices`` is
+    ``[num_triangles, 3, 3]``, tested ``batch_size`` at a time. Returns
+    int64 indices and ``t`` of shape ``[*batch]``, ``(-1, inf)`` on a miss.
+    Within a tile, ties keep the lowest index (argmin); across tiles, an
+    equal ``t`` in a later tile wins.
+
+    >>> import torch
+    >>> walls = torch.tensor([
+    ...     [[1.0, -9.0, -9.0], [1.0, 9.0, -9.0], [1.0, 0.0, 9.0]],
+    ...     [[2.0, -9.0, -9.0], [2.0, 9.0, -9.0], [2.0, 0.0, 9.0]],
+    ... ])
+    >>> ray = torch.tensor([1.0, 0.0, 0.0])
+    >>> index, t = first_triangle_hit_by_ray(torch.zeros(3), ray, walls)
+    >>> int(index), float(t)
+    (0, 1.0)
+    >>> int(first_triangle_hit_by_ray(torch.zeros(3), -ray, walls)[0])
+    -1
+    """
+    batch = torch.broadcast_shapes(ray_origins.shape[:-1], ray_directions.shape[:-1])
+    device = ray_origins.device
+    best_idx = torch.full(batch, -1, dtype=torch.int64, device=device)
+    best_t = torch.full(batch, torch.inf, dtype=ray_origins.dtype, device=device)
+    num_triangles = triangle_vertices.shape[0]
+    tile = num_triangles if batch_size is None else max(min(batch_size, num_triangles), 1)
+    origins = ray_origins[..., None, :]
+    directions = ray_directions[..., None, :]
+    for lo in range(0, num_triangles, tile):
+        t, hit = ray_intersect_triangle(
+            origins, directions, triangle_vertices[lo : lo + tile], epsilon=epsilon
+        )
+        if active_triangles is not None:
+            hit = hit & active_triangles[lo : lo + tile]
+        t_min, arg = torch.where(hit, t, torch.inf).min(dim=-1)
+        # Strict `<`: an equal t in a later tile wins.
+        keep = best_t < t_min
+        best_idx = torch.where(keep | torch.isinf(t_min), best_idx, arg + lo)
+        best_t = torch.where(keep, best_t, t_min)
+    return best_idx, best_t

@@ -1,20 +1,28 @@
-"""Exhaustive specular path tracing (port of ``differt_tpu.rt._solvers``, hard-mask subset).
+"""Exhaustive specular path tracing and SBR ray launching (port of ``differt_tpu.rt._solvers``, subset).
 
-Candidates are decoded from the closed-form index mapping; each batch of
-candidates goes through the image method, four geometric checks and the
-blockage test. On CUDA tensors with ``order >= 1`` the whole pipeline runs
-in the fused trace kernel; otherwise it runs unfused, with its blockage
-test on the any-hit kernel (CUDA) or its plain version (CPU).
+Exhaustive tracing: candidates are decoded from the closed-form index
+mapping; each batch of candidates goes through the image method, four
+geometric checks and the blockage test. On CUDA tensors with ``order >= 1``
+the whole pipeline runs in the fused trace kernel; otherwise it runs
+unfused, with its blockage test on the any-hit kernel (CUDA) or its plain
+version (CPU). Hard masks only.
+
+Ray launching (:class:`SBRPathLauncher`): a Fibonacci lattice of rays per
+transmitter, bounced ``order + 1`` times through the closest-hit kernel
+(or its plain version), each segment captured by the receivers it passes
+within ``sqrt(max_dist)`` of.
 """
 
+import abc
 import dataclasses
 
 import torch
 
 from ..geometry._candidates import generate_path_candidates
+from ..geometry._lattice import fibonacci_lattice, viewing_frustum
 from ..geometry._mesh import Mesh
-from ..geometry._paths import TracedPaths
-from ..geometry._vectors import _dot, assemble_path
+from ..geometry._paths import LaunchedPaths, TracedPaths
+from ..geometry._vectors import _cross, _dot, assemble_path
 from ._image_method import consecutive_vertices_are_on_same_side_of_mirror, image_method
 from ._triangle import F32_EPS, ray_intersect_triangle
 
@@ -58,7 +66,8 @@ def trace_path_candidates(
     ``tx_vertices [Ntx, 3]``, ``rx_vertices [Nrx, 3]``, ``path_candidates
     [C, order]`` primitive indices. Returns paths of batch shape
     ``[Ntx, Nrx, C]``. ``megakernel=None`` picks the fused trace kernel when
-    the tensors are on CUDA and ``order >= 1``; ``False`` forces the unfused
+    the backend resolves to ``"cuda"`` (by default: CUDA tensors) and
+    ``order >= 1``; ``False`` forces the unfused
     pipeline; ``True`` forces the fused kernel's contract (its plain version
     on CPU). Validity masks are hard; the smoothed checks are ROADMAP A5.
     """
@@ -77,7 +86,11 @@ def trace_path_candidates(
         active_rays = mesh.mask[path_candidates].all(dim=-1)
 
     if megakernel is None:
-        megakernel = tx_vertices.device.type == "cuda" and order >= 1 and num_candidates > 0
+        from ..ops import get_backend
+
+        megakernel = (
+            get_backend(tx_vertices.device) == "cuda" and order >= 1 and num_candidates > 0
+        )
     if megakernel:
         if order < 1:
             msg = "The fused trace kernel needs order >= 1."
@@ -209,7 +222,7 @@ class ExhaustivePathTracer:
     min_len: float | None = None
     """Minimal (squared) segment length for a valid path."""
     megakernel: bool | None = None
-    """Force the fused trace kernel on or off (None = on for CUDA, order >= 1)."""
+    """Force the fused trace kernel on or off (None: on for the "cuda" backend, order >= 1)."""
 
     def generate_path_candidates(
         self, scene, order: int
@@ -237,3 +250,140 @@ class ExhaustivePathTracer:
             min_len=self.min_len,
             megakernel=self.megakernel,
         )
+
+
+class AbstractPathLauncher(abc.ABC):
+    """Base class of the ray-launching solvers.
+
+    Subclasses are frozen dataclasses with a ``max_dist`` field (the
+    largest squared ray-to-receiver distance of a capture) and a
+    :meth:`launch_rays`.
+    """
+
+    max_dist: float
+
+    @abc.abstractmethod
+    def launch_rays(self, scene) -> tuple[torch.Tensor, torch.Tensor]:
+        """Initial ray origins and directions, ``[num_tx, num_rays, 3]`` each."""
+
+    def bounce_rays(
+        self,
+        scene,
+        ray_origins: torch.Tensor,
+        ray_directions: torch.Tensor,
+        triangles: torch.Tensor,
+        t_hit: torch.Tensor,
+        valid_rays: torch.Tensor,
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Advance rays to their hits and reflect them specularly.
+
+        A ray that hit nothing stays where it was and becomes invalid; its
+        reflection reads the normal of index -1 (the last triangle), as in
+        the JAX package.
+        """
+        inside = torch.isfinite(t_hit)
+        valid_rays = valid_rays & inside
+        t_hit = torch.where(inside, t_hit, 0.0)
+        ray_origins = ray_origins + t_hit[..., None] * ray_directions
+        normals = scene.mesh.normals[triangles]
+        ray_directions = ray_directions - 2.0 * _dot(ray_directions, normals)[..., None] * normals
+        return ray_origins, ray_directions, valid_rays
+
+    def filter_rays(
+        self,
+        scene,
+        ray_origins: torch.Tensor,
+        ray_directions: torch.Tensor,
+        rx_vertices: torch.Tensor,
+        t_hit: torch.Tensor,
+        valid_rays: torch.Tensor,
+    ) -> torch.Tensor:
+        """``[num_tx, num_rx, num_rays]``: rays passing within ``sqrt(max_dist)`` of each RX."""
+        del scene
+        directions = ray_directions[:, None, ...]
+        to_rx = rx_vertices[None, :, None, :] - ray_origins[:, None, ...]
+        off_axis = _cross(directions, to_rx)
+        dist_sq = _dot(off_axis, off_axis)
+        t_rx = _dot(directions, to_rx)
+        ahead = (t_rx > 0) & (t_rx < t_hit[:, None, :]) & valid_rays[:, None, :]
+        return ahead & (dist_sq < self.max_dist)
+
+    def launch_paths(self, scene, order: int) -> LaunchedPaths:
+        """Launch, bounce ``order + 1`` times, capture and assemble ray paths.
+
+        Returns :class:`LaunchedPaths` of batch shape ``[num_tx, num_rx,
+        num_rays]`` with one mask per order 0 ... ``order``.
+        """
+        tx_vertices = scene.transmitters.reshape(-1, 3)
+        rx_vertices = scene.receivers.reshape(-1, 3)
+        num_tx, num_rx = tx_vertices.shape[0], rx_vertices.shape[0]
+
+        origins, directions = self.launch_rays(scene)
+        num_rays = origins.shape[1]
+        valid = torch.ones(origins.shape[:-1], dtype=torch.bool, device=origins.device)
+        hit_triangles, hit_points, masks = [], [], []
+        for _ in range(order + 1):
+            triangles, t_hit = scene.mesh.first_triangle_hit_by_ray(origins, directions)
+            masks.append(self.filter_rays(scene, origins, directions, rx_vertices, t_hit, valid))
+            origins, directions, valid = self.bounce_rays(
+                scene, origins, directions, triangles, t_hit, valid
+            )
+            hit_triangles.append(triangles)
+            hit_points.append(origins)
+
+        # The last bounce leads nowhere: only the first `order` hits are vertices.
+        path_candidates = torch.stack(hit_triangles, dim=-1)[..., :order]
+        vertices = torch.stack(hit_points, dim=-2)[..., :order, :]
+        vertices = assemble_path(
+            tx_vertices[:, None, None, :],
+            vertices[:, None, ...],
+            rx_vertices[None, :, None, :],
+        )
+        shape = (num_tx, num_rx, num_rays)
+        dtype, device = path_candidates.dtype, path_candidates.device
+        objects = torch.cat(
+            (
+                torch.arange(num_tx, dtype=dtype, device=device)[:, None, None, None].expand(
+                    *shape, 1
+                ),
+                path_candidates[:, None, ...].expand(*shape, order),
+                torch.arange(num_rx, dtype=dtype, device=device)[None, :, None, None].expand(
+                    *shape, 1
+                ),
+            ),
+            dim=-1,
+        )
+        return LaunchedPaths(
+            vertices=vertices,
+            objects=objects,
+            masks=torch.stack(masks, dim=-1),
+            interaction_types=torch.zeros((*shape, order), dtype=torch.int32, device=device),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class SBRPathLauncher(AbstractPathLauncher):
+    """Shooting-and-bouncing-rays launcher: a Fibonacci lattice over each TX's frustum."""
+
+    num_rays: int = int(1e6)
+    """Number of rays launched from each transmitter."""
+    epsilon: float | None = None
+    """Tolerance for ray / object intersection checks (kept for the solver interface)."""
+    hit_tol: float | None = None
+    """Hit-distance tolerance for blockage tests (kept for the solver interface)."""
+    max_dist: float = 1e-3
+    """Largest squared ray-to-receiver distance of a capture."""
+
+    def launch_rays(self, scene) -> tuple[torch.Tensor, torch.Tensor]:
+        """Rays from each TX over the frustum of the mesh's vertices and the receivers."""
+        tx_vertices = scene.transmitters.reshape(-1, 3)
+        rx_vertices = scene.receivers.reshape(-1, 3)
+        world_vertices = torch.cat(
+            (scene.mesh.triangle_vertices.reshape(-1, 3), rx_vertices), dim=0
+        )
+        frustums = viewing_frustum(tx_vertices, world_vertices)
+        ray_origins = tx_vertices[:, None, :].expand(-1, self.num_rays, 3)
+        ray_directions = torch.stack(
+            [fibonacci_lattice(self.num_rays, frustum=f) for f in frustums]
+        )
+        return ray_origins, ray_directions

@@ -1,0 +1,237 @@
+"""Parity of the port's closest-hit path with the JAX package.
+
+- The plain scan (``rt.first_triangle_hit_by_ray``) against JAX's: indices
+  equal, ``t`` within ``1e-6`` (float32 Möller–Trumbore, op for op).
+- The wrapper's CPU path (the kernel's plain version) against the Pallas
+  kernel run in interpret mode: ``t`` within ``1e-6``; indices equal except
+  on exact ties, which the sorted kernel may break another way.
+- The differentiable distance of ``Mesh.first_triangle_hit_by_ray``
+  against ``jax.grad``: ``rtol=1e-5`` (``atol=1e-6`` for entries near 0).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from differt_tpu import rt as jax_rt
+from differt_tpu import scenes as jax_scenes
+from differt_tpu import treekit as tk
+from differt_tpu.geometry import Mesh as JaxMesh
+from differt_tpu.geometry import fibonacci_lattice as jax_lattice
+from differt_tpu.ops._pallas_rt import pallas_first_triangle_hit_by_ray
+from differt_tpu_torch import ops, rt
+from differt_tpu_torch.geometry import Mesh
+from differt_tpu_torch.interop import mesh_from_numpy
+from differt_tpu_torch.ops import _closest
+
+from .torch_parity import jax_scene_fields
+
+torch.set_num_threads(1)
+
+T_ATOL = 1e-6
+
+
+def _to_torch_mesh(mesh) -> Mesh:
+    return mesh_from_numpy(jax_scene_fields(jax_scenes.Scene(mesh=mesh))["mesh"])
+
+
+def _box_rays():
+    """The ``box_rays`` inputs of ``tests/test_pallas.py``."""
+    mesh = JaxMesh.box(2.0, 1.5, 1.0, with_top=True)
+    origins = jax.random.uniform(jax.random.key(0), (200, 3), minval=-0.3, maxval=0.3)
+    directions = jax_lattice(200) * 3.0
+    return mesh, origins, directions
+
+
+def _many_boxes():
+    """60 stacked boxes (720 triangles, coincident walls: many exact ties)."""
+    mesh = JaxMesh.box(1.0, 1.0, 1.0, with_top=True)
+    for i in range(1, 60):
+        mesh = mesh + JaxMesh.box(1.0 + 0.1 * i, 1.0, 1.0, with_top=True)
+    origins = jax.random.uniform(jax.random.key(3), (64, 3), minval=-0.3, maxval=0.3)
+    return mesh, origins, jax_lattice(64) * 3.0
+
+
+def _city():
+    """``urban_scene(4, 4)`` (578 triangles) and lattice rays from above a street."""
+    mesh = jax_scenes.urban_scene(4, 4).mesh
+    origins = jnp.broadcast_to(jnp.array([25.0, 0.0, 30.0]), (500, 3))
+    return mesh, origins, jax_lattice(500) * 300.0
+
+
+CASES = {"box": _box_rays, "boxes60": _many_boxes, "city4x4": _city}
+
+
+@pytest.fixture(scope="module", params=list(CASES))
+def case(request):
+    mesh, origins, directions = CASES[request.param]()
+    torch_mesh = _to_torch_mesh(mesh)
+    o = torch.from_numpy(np.array(origins))
+    d = torch.from_numpy(np.array(directions))
+    return request.param, mesh, origins, directions, torch_mesh, o, d
+
+
+def _mask(num: int) -> np.ndarray:
+    return np.arange(num) % 3 != 0
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("batch_size", [512, None, 3])
+def test_plain_scan_matches_jax(case, masked: bool, batch_size) -> None:
+    _, mesh, origins, directions, torch_mesh, o, d = case
+    tv = mesh.triangle_vertices
+    active = _mask(mesh.num_triangles) if masked else None
+    idx_ref, t_ref = jax_rt.first_triangle_hit_by_ray(
+        origins, directions, tv, None if active is None else jnp.asarray(active),
+        batch_size=batch_size,
+    )
+    idx, t = rt.first_triangle_hit_by_ray(
+        o, d, torch_mesh.triangle_vertices,
+        None if active is None else torch.from_numpy(active),
+        batch_size=batch_size,
+    )
+    assert idx.dtype == torch.int64
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(idx_ref))
+    np.testing.assert_allclose(t.numpy(), np.asarray(t_ref), atol=T_ATOL, rtol=0)
+    assert (idx >= 0).any() and bool(torch.isinf(t[idx < 0]).all())
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_wrapper_matches_pallas_interpret(case, masked: bool) -> None:
+    name, mesh, origins, directions, torch_mesh, o, d = case
+    tv = mesh.triangle_vertices
+    active = _mask(mesh.num_triangles) if masked else None
+    idx_ref, t_ref = pallas_first_triangle_hit_by_ray(
+        origins, directions, tv, None if active is None else jnp.asarray(active)
+    )
+    idx_ref, t_ref = np.asarray(idx_ref), np.asarray(t_ref)
+    torch_tv = torch_mesh.triangle_vertices.contiguous()
+    torch_active = None if active is None else torch.from_numpy(active)
+    launches, calls = _closest.LAUNCHES, _closest.REFERENCE_CALLS
+    idx, t = _closest.first_triangle_hit_by_ray_cuda(o, d, torch_tv, torch_active)
+    # On CPU tensors the wrapper runs the plain version and launches nothing.
+    assert (_closest.LAUNCHES, _closest.REFERENCE_CALLS) == (launches, calls + 1)
+    np.testing.assert_allclose(t.numpy(), t_ref, atol=T_ATOL, rtol=0)
+    differ = idx.numpy() != idx_ref
+    if name == "box":
+        assert not differ.any()  # no ray of these hits an edge
+    # Where the indices differ (coincident walls, shared edges), the Pallas
+    # kernel's triangle is a true tie: the plain t for it is the best t.
+    rays = np.flatnonzero(differ)
+    if rays.size:
+        t_of, hit = rt.ray_intersect_triangle(
+            o[rays], d[rays], torch_tv[torch.from_numpy(idx_ref[rays])]
+        )
+        assert bool(hit.all())
+        np.testing.assert_array_equal(t_of.numpy(), t.numpy()[rays])
+
+
+def test_wrapper_on_cpu_equals_reference(case) -> None:
+    *_, torch_mesh, o, d = case
+    tv = torch_mesh.triangle_vertices.contiguous()
+    got = ops.first_triangle_hit_by_ray_cuda(o, d, tv)
+    want = ops.first_triangle_hit_by_ray_reference(o, d, tv)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_reference_blocks_many_rays(monkeypatch) -> None:
+    # The plain version runs rays in blocks of _MAX_PAIRS // 512; blocks of
+    # 5 rays give the same answers as one block.
+    mesh, origins, directions = _box_rays()
+    tv = _to_torch_mesh(mesh).triangle_vertices
+    o, d = torch.from_numpy(np.array(origins)), torch.from_numpy(np.array(directions))
+    whole = _closest.first_triangle_hit_by_ray_reference(o, d, tv)
+    monkeypatch.setattr(_closest, "_MAX_PAIRS", 5 * 512)
+    blocked = _closest.first_triangle_hit_by_ray_reference(o, d, tv)
+    assert torch.equal(whole[0], blocked[0]) and torch.equal(whole[1], blocked[1])
+
+
+def test_mesh_method_matches_jax(case) -> None:
+    _, mesh, origins, directions, torch_mesh, o, d = case
+    idx_ref, t_ref = mesh.first_triangle_hit_by_ray(origins, directions)
+    idx, t = torch_mesh.first_triangle_hit_by_ray(o, d)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(idx_ref))
+    np.testing.assert_allclose(t.numpy(), np.asarray(t_ref), atol=T_ATOL, rtol=0)
+    # Rays broadcast: one origin against many directions.
+    idx_b, t_b = torch_mesh.first_triangle_hit_by_ray(o[0], d[:7])
+    idx_1, t_1 = torch_mesh.first_triangle_hit_by_ray(o[0].expand(7, 3), d[:7])
+    assert torch.equal(idx_b, idx_1) and torch.equal(t_b, t_1)
+
+
+def test_empty_mesh_misses() -> None:
+    idx, t = Mesh.empty().first_triangle_hit_by_ray(torch.zeros(4, 3), torch.ones(4, 3))
+    assert idx.tolist() == [-1] * 4 and bool(torch.isinf(t).all())
+
+
+def test_closest_hit_distance_gradient() -> None:
+    # Port of tests/test_rays.py::test_closest_hit_distance_gradient.
+    mesh = Mesh.box(with_top=True)
+    origin = torch.zeros(3, requires_grad=True)
+    _, t = mesh.first_triangle_hit_by_ray(origin, torch.tensor([1.0, 0.0, 0.0]))
+    (g,) = torch.autograd.grad(t, origin)
+    # t = 0.5 - x0: dt/dx0 = -1.
+    torch.testing.assert_close(g, torch.tensor([-1.0, 0.0, 0.0]), atol=1e-5, rtol=0)
+
+
+def test_distance_gradients_match_jax() -> None:
+    rng = np.random.default_rng(11)
+    mesh = JaxMesh.box(2.0, 1.5, 1.0, with_top=True)
+    # 48 rays from inside (all hit) and 16 from outside looking away (miss).
+    inside = rng.uniform(-0.3, 0.3, (48, 3))
+    outside = np.array([0.0, 0.0, 5.0]) + rng.uniform(-0.3, 0.3, (16, 3))
+    origins = np.concatenate((inside, outside)).astype(np.float32)
+    directions = rng.normal(size=(64, 3)).astype(np.float32)
+    directions[48:, 2] = np.abs(directions[48:, 2]) + 0.5
+    weights = rng.uniform(0.5, 1.5, 64).astype(np.float32)
+
+    def jax_loss(vertices, o, d):
+        m = tk.tree_at(lambda x: x.vertices, mesh, vertices)
+        _, t = m.first_triangle_hit_by_ray(o, d)
+        # t * t: the misses' cotangent is inf, which the backward zeroes.
+        return jnp.sum(weights * t * t)
+
+    ref = jax.grad(jax_loss, argnums=(0, 1, 2))(
+        mesh.vertices, jnp.asarray(origins), jnp.asarray(directions)
+    )
+    torch_mesh = _to_torch_mesh(mesh)
+    inputs = [
+        torch_mesh.vertices.clone().requires_grad_(True),
+        torch.from_numpy(origins).requires_grad_(True),
+        torch.from_numpy(directions).requires_grad_(True),
+    ]
+    idx, t = Mesh(vertices=inputs[0], triangles=torch_mesh.triangles).first_triangle_hit_by_ray(
+        inputs[1], inputs[2]
+    )
+    assert not idx.requires_grad and bool((idx[:48] >= 0).all()) and bool((idx[48:] < 0).all())
+    loss = (torch.from_numpy(weights) * t * t).sum()
+    grads = torch.autograd.grad(loss, inputs)
+    for ours, want in zip(grads, ref, strict=True):
+        assert bool(torch.isfinite(ours).all())
+        np.testing.assert_allclose(ours.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+    assert float(grads[1][48:].abs().max()) == 0.0  # misses carry no gradient
+
+
+@pytest.fixture
+def backend():
+    yield ops.set_backend
+    ops.set_backend("auto")
+
+
+def test_backend_switch(backend) -> None:
+    mesh = Mesh.box(with_top=True)
+    o, d = torch.zeros(5, 3), torch.ones(5, 3)
+    assert ops.get_backend() == "auto"
+    assert ops.get_backend(torch.device("cpu")) == "torch"
+    backend("torch")
+    calls = _closest.REFERENCE_CALLS
+    mesh.first_triangle_hit_by_ray(o, d)
+    assert _closest.REFERENCE_CALLS == calls + 1
+    backend("cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mesh.first_triangle_hit_by_ray(o, d)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mesh.ray_intersect_any_triangle(o, d)
+    with pytest.raises(ValueError, match="Unknown backend"):
+        backend("pallas")

@@ -140,6 +140,7 @@ def test_interop_round_trip() -> None:
     [
         "differt_tpu_torch.utils",
         "differt_tpu_torch.geometry._vectors",
+        "differt_tpu_torch.geometry._lattice",
         "differt_tpu_torch.geometry._mesh",
         "differt_tpu_torch.geometry._candidates",
         "differt_tpu_torch.em._fresnel",
@@ -147,7 +148,9 @@ def test_interop_round_trip() -> None:
         "differt_tpu_torch.rt._triangle",
         "differt_tpu_torch.rt._image_method",
         "differt_tpu_torch.rt._scan",
+        "differt_tpu_torch.rt._mlm",
         "differt_tpu_torch.ops._rt",
+        "differt_tpu_torch.ops._dispatch",
         "differt_tpu_torch.coverage",
         "differt_tpu_torch.scenes",
     ],

@@ -11,9 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from differt_tpu_torch import scenes
-from differt_tpu_torch.geometry import Scene, generate_path_candidates
-from differt_tpu_torch.ops import _rt, _trace
+from differt_tpu_torch import ops, scenes
+from differt_tpu_torch.geometry import Scene, fibonacci_lattice, generate_path_candidates
+from differt_tpu_torch.ops import _closest, _rt, _trace
+from differt_tpu_torch.rt import ray_intersect_triangle
 from differt_tpu_torch.rt._solvers import candidate_geometry
 
 from .torch_parity import EPSILON, HIT_TOL, cuda_or_skip, random_segments, triangle_mask
@@ -95,3 +96,110 @@ def test_unfused_pipeline_uses_the_anyhit_kernel() -> None:
     torch.cuda.synchronize()
     assert _rt.LAUNCHES == launches + 1 and _rt.REFERENCE_CALLS == calls
     assert torch.equal(fused.mask, unfused.mask)
+
+
+def _closest_rays(tv: torch.Tensor, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Lattice rays from above the city (hits and misses), rays that miss
+    everything, and rays starting on the faces they hit first."""
+    n = 40_000
+    down = fibonacci_lattice(n, device=device) * 500.0
+    o_down = torch.tensor([10.0, -20.0, 30.0], device=device).expand(n, 3)
+    up = fibonacci_lattice(2_000, device=device).abs() * 10.0
+    o_up = torch.tensor([0.0, 0.0, 500.0], device=device).expand(2_000, 3)
+    idx, t = _closest.first_triangle_hit_by_ray_reference(o_down, down, tv)
+    on_face = (o_down + t[:, None] * down)[idx >= 0][:20_000]
+    rng = np.random.default_rng(5)
+    d_face = torch.from_numpy(rng.normal(size=on_face.shape).astype(np.float32)).to(device)
+    origins = torch.cat((o_down, o_up, on_face)).contiguous()
+    directions = torch.cat((down, up, d_face)).contiguous()
+    return origins, directions
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_closest_kernel_matches_reference(masked: bool) -> None:
+    device = cuda_or_skip()
+    mesh = scenes.urban_scene(12, 12, device=device).mesh  # 5,186 triangles: 11 tiles
+    tv = mesh.triangle_vertices.contiguous()
+    active = torch.from_numpy(triangle_mask(tv.shape[0], 31)).to(device) if masked else None
+    o, d = _closest_rays(tv, device)
+    launches = _closest.LAUNCHES
+    idx, t = _closest.first_triangle_hit_by_ray_cuda(o, d, tv, active)
+    torch.cuda.synchronize()
+    assert _closest.LAUNCHES == launches + 1
+    want_idx, want_t = _closest.first_triangle_hit_by_ray_reference(o, d, tv, active)
+    # t is bit-equal: the kernel's Möller–Trumbore runs op for op as the
+    # plain version's (--fmad=false).
+    assert torch.equal(t, want_t)
+    assert bool((idx[40_000:42_000] == -1).all())  # the upward rays miss
+    assert 0 < int((idx >= 0).sum()) < idx.numel()
+    # A differing index is a true tie: the kernel's (active) triangle is hit
+    # at the plain version's best t.
+    rays = torch.nonzero(idx != want_idx).squeeze(-1)
+    if rays.numel():
+        t_of, hit = ray_intersect_triangle(o[rays], d[rays], tv[idx[rays]])
+        assert bool(hit.all()) and torch.equal(t_of, want_t[rays])
+        if active is not None:
+            assert bool(active[idx[rays]].all())
+
+
+def _street_scene(device) -> Scene:
+    mesh = scenes.urban_scene(4, 4, device=device).mesh
+    y, x = torch.meshgrid(
+        50.0 * torch.arange(-1, 2, device=device),
+        50.0 * torch.arange(-1, 2, device=device),
+        indexing="ij",
+    )
+    rx = torch.stack((x, y, torch.full_like(x, 1.5)), dim=-1)
+    return Scene(
+        transmitters=torch.tensor([[0.0, 0.0, 40.0]], device=device), receivers=rx, mesh=mesh
+    )
+
+
+@pytest.fixture
+def torch_backend():
+    yield lambda: ops.set_backend("torch")
+    ops.set_backend("auto")
+
+
+def test_launch_paths_through_the_kernel(torch_backend) -> None:
+    device = cuda_or_skip()
+    scene = _street_scene(device)
+    launches, calls = _closest.LAUNCHES, _closest.REFERENCE_CALLS
+    paths = scene.launch_paths(order=3, num_rays=50_000, max_dist=1.0)
+    torch.cuda.synchronize()
+    assert (_closest.LAUNCHES, _closest.REFERENCE_CALLS) == (launches + 4, calls)
+    assert bool(paths.masks[..., 0].any()) and bool(paths.masks[..., 1:].any())
+    torch_backend()
+    plain = scene.launch_paths(order=3, num_rays=50_000, max_dist=1.0)
+    assert _closest.REFERENCE_CALLS == calls + 4
+    # Rays whose hits differ met an exact tie (coincident faces: each
+    # building level's top and the next level's bottom), which the kernel
+    # breaks in Morton order: at the first differing bounce both runs reach
+    # the same point. Every other ray, and so every other mask, is equal.
+    hits, want = paths.objects[0, 0, 0, :, 1:-1], plain.objects[0, 0, 0, :, 1:-1]
+    tie_rays = (hits != want).any(dim=-1)
+    first = (hits != want).int().argmax(dim=-1)[tie_rays]
+    rows = torch.arange(first.numel(), device=device)
+    assert torch.equal(
+        paths.vertices[0, 0, 0, tie_rays, 1:-1][rows, first],
+        plain.vertices[0, 0, 0, tie_rays, 1:-1][rows, first],
+    )
+    same = ~tie_rays
+    assert torch.equal(paths.masks[..., same, :], plain.masks[..., same, :])
+
+
+def test_compute_tx_mlm_through_the_kernel(torch_backend) -> None:
+    device = cuda_or_skip()
+    scene = _street_scene(device)
+    kw = {"num_rays": 100_000, "order": 2, "grid_size": (64, 64), "receiver_plane_z": 1.5}
+    launches, calls = _closest.LAUNCHES, _closest.REFERENCE_CALLS
+    mlm = scene.compute_tx_mlm(**kw)
+    torch.cuda.synchronize()
+    assert (_closest.LAUNCHES, _closest.REFERENCE_CALLS) == (launches + 3, calls)
+    torch_backend()
+    plain = scene.compute_tx_mlm(**kw)
+    assert _closest.REFERENCE_CALLS == calls + 3
+    lit = int((plain != 0).sum())
+    assert lit > 0
+    # Cells that a tie ray reaches may differ: at most 0.1% of the lit cells.
+    assert int((mlm != plain).sum()) <= max(1, lit // 1000)

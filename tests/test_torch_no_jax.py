@@ -20,6 +20,10 @@ scene = Scene(
 power = power_map(scene, 2.4e9, order=1)
 assert power.shape == (1, 8, 8), power.shape
 assert bool(torch.isfinite(power).all()) and float(power.max()) > 0.0
+paths = scene.launch_paths(order=2, num_rays=2000, max_dist=4.0)
+assert paths.masks.shape == (1, 8, 8, 2000, 3) and bool(paths.masks.any())
+mlm = scene.compute_tx_mlm(num_rays=2000, order=2, grid_size=(16, 16), receiver_plane_z=1.5)
+assert mlm.shape == (1, 16, 16) and len(torch.unique(mlm)) > 3
 assert not any(name == "jax" or name.startswith(("jax.", "differt_tpu.")) for name in sys.modules if sys.modules[name] is not None)
 print("ok")
 """
