@@ -6,8 +6,9 @@ Run from the repository root, on a host with one H100:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``differt_tpu_torch/csrc/``,
-checks each against its plain PyTorch version on the card, and drives two
-paths, each counted from zero:
+checks each against its plain PyTorch version on the card, times each
+alone (on a prepared BVH), inside its wrapper and beside its plain
+version, and drives two paths, each counted from zero:
 
 - coverage: ``power_map_chunked`` on the 20,738-triangle
   ``urban_scene(24, 24)``, orders 0, 1 and 2, through the any-hit and
@@ -17,13 +18,16 @@ paths, each counted from zero:
   ``Scene.compute_tx_mlm`` (order 2, 500,000 rays, 128 x 128 cells) on the
   9,218-triangle ``urban_scene(16, 16)``, through the closest-hit kernel;
 
-and checks that each path went through its kernels and never through their
-plain versions. One line per phase; then a JSON line with each kernel's
-launches, error and times; then, last, ``{"ok": true, "device": {...}}``.
-Any failure raises (exit code != 0). There is no CPU path: without a CUDA
-device the script fails at once.
+and checks that each path call went through its kernels, never through
+their plain versions, and built its mesh's BVH once. Then it profiles
+each path once. One line per phase; then the card, a JSON line with each
+kernel's launches, error, times and bound; then, last,
+``{"ok": true, "device": {...}}``. Any failure
+raises (exit code != 0). There is no CPU path: without a CUDA device the
+script fails at once.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -47,6 +51,12 @@ SBR_ORDER, SBR_RAYS = 3, 250_000  # bench_config3
 # default of 1e-3 m^2 (3 cm) catches almost no ray of 250,000 over a city.
 SBR_MAX_DIST = 1.0
 MLM_ORDER, MLM_RAYS, MLM_GRID = 2, 500_000, (128, 128)  # bench_config3
+TX = (0.0, 0.0, 40.0)
+# The card's peaks for the bounds (NVIDIA's H100 SXM data sheet, at 700 W):
+# device memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+MT_FLOPS = 51  # One Möller–Trumbore test: two crosses, four dots, a reciprocal, the checks.
 
 
 def cuda_ms(fn, repeats: int) -> float:
@@ -60,6 +70,26 @@ def cuda_ms(fn, repeats: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / repeats
+
+
+def bound(num_bytes: float, flops: float) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of bytes and operations at peak."""
+    t_bytes = num_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def mesh_bytes(triangle_vertices: torch.Tensor, active) -> int:
+    """Bytes of a kernel function's mesh input: float32 [T, 3, 3], plus a bool [T] mask if given."""
+    num = triangle_vertices.shape[0]
+    return num * 36 + (0 if active is None else num)
+
+
+def trace_flops(paths: int, order: int, tpm: int) -> float:
+    """Geometry operations of the fused trace: per mirror the backward step (23),
+    ``tpm`` Möller–Trumbore tests and the same-side check (16), per segment the
+    length check (8). Blockage, which depends on the data, is not counted."""
+    return paths * (order * (23 + MT_FLOPS * tpm + 16) + 8 * (order + 1))
 
 
 def db_error(port: torch.Tensor, ref: torch.Tensor, window_db: float = 40.0) -> float:
@@ -95,74 +125,221 @@ def lattice_rays(n: int, origin, scale: float, device) -> tuple[torch.Tensor, to
     return origins, directions
 
 
-def check_closest_kernel(device) -> dict:
-    """Phase 5: the closest-hit kernel against its plain version."""
+def fresh(scene):
+    """The scene with a copy of its mesh that holds no BVH yet."""
+    return dataclasses.replace(scene, mesh=dataclasses.replace(scene.mesh))
+
+
+def ptxas_lines(report: str) -> list[str]:
+    """One line per kernel instance: its registers, spills and shared memory."""
+    lines, name = [], None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and ("spill" in line or "Used" in line):
+            lines.append(f"{name}: {line.split(':', 1)[-1].strip()}")
+    return lines
+
+
+def check_anyhit(device, mesh, city, kernels: dict) -> None:
+    """Phase 2: the any-hit kernel against its plain version, at the test
+    shape (262,144 random segments) and at the main path's (order 0: the
+    TX to each of the 128 street receivers)."""
+    from differt_tpu_torch.ops import _bvh, _rt
+
+    tv = mesh.triangle_vertices.contiguous()
+    bvh = mesh.bvh
+    rng = np.random.default_rng(0)
+    lo, hi = mesh.bounding_box.cpu().numpy()
+    lo[2], hi[2] = 0.5, hi[2] + 10.0
+    start_pts = rng.uniform(lo, hi, (NUM_RAYS, 3)).astype(np.float32)
+    end_pts = rng.uniform(lo, hi, (NUM_RAYS, 3)).astype(np.float32)
+    active = np.arange(NUM_RAYS) % 8 != 0  # 1/8 inactive
+    thresh = np.where(active, 1.0 - 2.0 * HIT_TOL, -1.0).astype(np.float32)
+    random_rays = (
+        torch.from_numpy(start_pts).to(device),
+        torch.from_numpy(end_pts - start_pts).to(device),
+        torch.from_numpy(thresh).to(device),
+    )
+    rx = city.receivers.reshape(-1, 3)
+    o = torch.tensor(TX, device=device).expand_as(rx)
+    d = rx - o
+    main_rays = (
+        (o + d * HIT_TOL).contiguous(),
+        d.contiguous(),
+        torch.full((rx.shape[0],), 1.0 - 2.0 * HIT_TOL, device=device),
+    )
+    eps = TRACE_KW["epsilon"]
+    for label, (o, d, th) in (("(a) 262,144 segments", random_rays), ("(b) main path, order 0", main_rays)):
+        got = _rt.ray_intersect_any_triangle_cuda(o, d, tv, None, hit_threshold=th, bvh=bvh)
+        want = _rt.ray_intersect_any_triangle_reference(o, d, tv, None, hit_threshold=th)
+        mismatches = int((got != want).sum())
+        if mismatches:
+            msg = f"any-hit kernel disagrees with its plain version on {mismatches} rays ({label})"
+            raise AssertionError(msg)
+        out = torch.empty_like(got)
+        kernel_ms = cuda_ms(lambda: _rt.launch_anyhit(o, d, th, bvh, eps, out), 20)
+        ms = cuda_ms(lambda: _rt.ray_intersect_any_triangle_cuda(o, d, None, hit_threshold=th, bvh=bvh), 20)
+        build_ms = cuda_ms(lambda: _rt.ray_intersect_any_triangle_cuda(o, d, tv, None, hit_threshold=th), 3)
+        plain_ms = cuda_ms(lambda: _rt.ray_intersect_any_triangle_reference(o, d, tv, None, hit_threshold=th), 2)
+        num = o.shape[0]
+        bound_ms, bound_by = bound(num * 29 + mesh_bytes(tv, None), num * MT_FLOPS)
+        print(
+            f"phase 2 anyhit {label}: rays={num} triangles={tv.shape[0]}"
+            f" blocked={int(got.sum())} mismatches=0 kernel_only_ms={kernel_ms:.4f}"
+            f" wrapper_ms={ms:.4f} wrapper_with_build_ms={build_ms:.3f} plain_ms={plain_ms:.3f}"
+            f" bound_ms={bound_ms:.5f} ({bound_by})",
+            flush=True,
+        )
+    kernels["anyhit"] = {
+        "name": "anyhit",
+        "route": "cuda",
+        "source": "differt_tpu_torch/csrc/anyhit.cu",
+        "replaces": "differt_tpu/ops/_pallas_rt.py:228",
+        "shape": "main path order 0: 128 segments x 20,738 triangles",
+        "max_abs_err": 0.0,
+        "kernel_only_ms": kernel_ms,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # No single PyTorch call computes an any-hit test.
+    }
+    build_ms = cuda_ms(lambda: _bvh.build_bvh(tv, None), 5)
+    print(
+        f"phase 2 BVH build, 20,738 triangles: {build_ms:.3f} ms; nodes={bvh.num_nodes}"
+        f" depth={bvh.depth} leaf_size={bvh.leaf_size} large={bvh.num_large}"
+        f" bytes={bvh.nbytes}",
+        flush=True,
+    )
+
+
+def check_closest(device, kernels: dict) -> None:
+    """Phase 5: the closest-hit kernel against its plain version; every index
+    must be the tie key's winner."""
     from differt_tpu_torch import scenes
-    from differt_tpu_torch.ops import _closest
-    from differt_tpu_torch.rt import ray_intersect_triangle
+    from differt_tpu_torch.ops import _bvh, _closest
+
+    eps = TRACE_KW["epsilon"]
 
     def check(label, origins, directions, tv, active):
-        args = (origins, directions, tv, active)
-        idx, t = _closest.first_triangle_hit_by_ray_cuda(*args)
-        want_idx, want_t = _closest.first_triangle_hit_by_ray_reference(*args)
+        bvh = _bvh.build_bvh(tv, active)
+        idx, t = _closest.first_triangle_hit_by_ray_cuda(origins, directions, tv, active, bvh=bvh)
+        want_idx, want_t = _closest.first_triangle_hit_by_ray_reference(
+            origins, directions, tv, active
+        )
         # t must be bit-equal (the kernel's MT runs op for op, --fmad=false).
         if not torch.equal(t, want_t):
             msg = f"closest-hit t differs from its plain version ({label})"
             raise AssertionError(msg)
-        # Indices may differ only on true ties: the plain version's t for the
-        # kernel's (active) triangle is the best t.
-        rays = torch.nonzero(idx != want_idx).squeeze(-1)
-        if rays.numel():
-            t_of, hit = ray_intersect_triangle(
-                origins[rays], directions[rays], tv[idx[rays]]
-            )
-            ok = bool(hit.all()) and torch.equal(t_of, want_t[rays])
-            if active is not None:
-                ok = ok and bool(active[idx[rays]].all())
-            if not ok:
-                msg = f"closest-hit indices differ off a tie ({label})"
-                raise AssertionError(msg)
-        finite = torch.isfinite(want_t)
-        err = float((t[finite] - want_t[finite]).abs().max()) if finite.any() else 0.0
-        ms = cuda_ms(lambda: _closest.first_triangle_hit_by_ray_cuda(*args), 5)
-        plain_ms = cuda_ms(lambda: _closest.first_triangle_hit_by_ray_reference(*args), 2)
+        winner = _closest.tie_key_winner(origins, directions, tv, active, want_t, bvh.positions)
+        if not torch.equal(idx, winner):
+            msg = f"closest-hit index is not the tie key's winner on {int((idx != winner).sum())} rays ({label})"
+            raise AssertionError(msg)
+        pos = torch.empty(origins.shape[0], dtype=torch.int32, device=device)
+        t_out = torch.empty(origins.shape[0], device=device)
+        kernel_ms = cuda_ms(
+            lambda: _closest.launch_closest(origins, directions, bvh, eps, pos, t_out), 10
+        )
+        ms = cuda_ms(
+            lambda: _closest.first_triangle_hit_by_ray_cuda(origins, directions, None, bvh=bvh), 10
+        )
+        build_ms = cuda_ms(
+            lambda: _closest.first_triangle_hit_by_ray_cuda(origins, directions, tv, active), 3
+        )
+        plain_ms = cuda_ms(
+            lambda: _closest.first_triangle_hit_by_ray_reference(origins, directions, tv, active), 2
+        )
         print(
             f"phase 5 closest {label}: rays={idx.numel()} triangles={tv.shape[0]}"
-            f" hits={int((idx >= 0).sum())} ties={rays.numel()} max_abs_err={err}"
-            f" kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}",
+            f" hits={int((idx >= 0).sum())} ties_broken_otherwise_than_the_scan="
+            f"{int((idx != want_idx).sum())} max_abs_err=0.0 kernel_only_ms={kernel_ms:.3f}"
+            f" wrapper_ms={ms:.3f} wrapper_with_build_ms={build_ms:.3f} plain_ms={plain_ms:.3f}",
             flush=True,
         )
-        return err, ms, plain_ms
 
     small = scenes.urban_scene(8, 8, device=device).mesh.triangle_vertices.contiguous()
     if small.shape[0] != 2_306:
         msg = f"urban_scene(8, 8) has {small.shape[0]} triangles, expected 2,306"
         raise AssertionError(msg)
     rays = lattice_rays(RAYCAST_RAYS, [0.0, 0.0, 30.0], 500.0, device)
-    err_a, ms, plain_ms = check("(a) raycast shape", *rays, small, None)
+    check("(a) raycast shape", *rays, small, None)
     third = torch.arange(small.shape[0], device=device) % 3 != 0
-    err_b, *_ = check("(b) raycast shape, % 3 mask", *rays, small, third)
+    check("(b) raycast shape, % 3 mask", *rays, small, third)
     big = scenes.urban_scene(24, 24, device=device).mesh.triangle_vertices.contiguous()
-    err_c, *_ = check(
-        "(c) city 24x24", *lattice_rays(NUM_RAYS, [0.0, 0.0, 40.0], 500.0, device), big, None
-    )
-    return {
+    check("(c) city 24x24", *lattice_rays(NUM_RAYS, [0.0, 0.0, 40.0], 500.0, device), big, None)
+    kernels["closest"] = {
         "name": "closest",
         "route": "cuda",
         "source": "differt_tpu_torch/csrc/closest.cu",
         "replaces": "differt_tpu/ops/_pallas_rt.py:277",
-        "max_abs_err": max(err_a, err_b, err_c),
-        "ms": ms,
-        "plain_ms": plain_ms,
+        "max_abs_err": 0.0,
+        "library_ms": None,  # No single PyTorch call computes a closest hit.
     }
 
 
-def run_ray_launching(device, closest: dict) -> None:
+def time_closest_at_path_shapes(scene, kernels: dict) -> dict:
+    """Phase 5 (d): the closest-hit kernel on the first bounce of SBR and of
+    the MLM (lattice rays from the TX over the frustum), checked against its
+    plain version as in (a)-(c), then timed alone, in its wrapper, and
+    plain. The SBR row goes into the JSON."""
+    from differt_tpu_torch.ops import _closest
+    from differt_tpu_torch.rt import SBRPathLauncher
+
+    mesh = scene.mesh
+    bvh = mesh.bvh
+    tv = mesh.triangle_vertices.contiguous()
+    eps = TRACE_KW["epsilon"]
+    rows = {}
+    for label, num in (("SBR", SBR_RAYS), ("MLM", MLM_RAYS)):
+        o, d = SBRPathLauncher(num_rays=num).launch_rays(scene)
+        o, d = o[0].contiguous(), d[0].contiguous()
+        idx, t = _closest.first_triangle_hit_by_ray_cuda(o, d, None, bvh=bvh)
+        want_idx, want_t = _closest.first_triangle_hit_by_ray_reference(o, d, tv, None)
+        if not torch.equal(t, want_t):
+            msg = f"closest-hit t differs from its plain version ({label} first bounce)"
+            raise AssertionError(msg)
+        winner = _closest.tie_key_winner(o, d, tv, None, want_t, bvh.positions)
+        if not torch.equal(idx, winner):
+            msg = (
+                f"closest-hit index is not the tie key's winner on"
+                f" {int((idx != winner).sum())} rays ({label} first bounce)"
+            )
+            raise AssertionError(msg)
+        pos = torch.empty(num, dtype=torch.int32, device=o.device)
+        t_out = torch.empty(num, device=o.device)
+        kernel_ms = cuda_ms(lambda: _closest.launch_closest(o, d, bvh, eps, pos, t_out), 10)
+        ms = cuda_ms(lambda: _closest.first_triangle_hit_by_ray_cuda(o, d, None, bvh=bvh), 10)
+        build_ms = cuda_ms(lambda: _closest.first_triangle_hit_by_ray_cuda(o, d, tv, None), 3)
+        plain_ms = cuda_ms(lambda: _closest.first_triangle_hit_by_ray_reference(o, d, tv, None), 2)
+        bound_ms, bound_by = bound(num * (24 + 8) + mesh_bytes(tv, None), num * MT_FLOPS)
+        rows[label] = {
+            "kernel_only_ms": kernel_ms,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+        }
+        print(
+            f"phase 5 (d) closest, {label} first bounce: rays={num} triangles={tv.shape[0]}"
+            f" hits={int((idx >= 0).sum())} ties_broken_otherwise_than_the_scan="
+            f"{int((idx != want_idx).sum())} max_abs_err=0.0 kernel_only_ms={kernel_ms:.3f}"
+            f" wrapper_ms={ms:.3f} wrapper_with_build_ms={build_ms:.3f}"
+            f" plain_ms={plain_ms:.3f} bound_ms={bound_ms:.5f} ({bound_by})",
+            flush=True,
+        )
+    kernels["closest"].update(
+        shape="SBR first bounce: 250,000 lattice rays x 9,218 triangles", **rows["SBR"]
+    )
+    return rows
+
+
+def run_ray_launching(device, kernels: dict) -> dict:
     """Phases 6-7: SBR and the MLM at bench_config3 width, counted; then
     the same runs on the plain version (``set_backend("torch")``) to compare."""
     from differt_tpu_torch import ops, scenes
     from differt_tpu_torch.geometry import Scene
-    from differt_tpu_torch.ops import _closest
+    from differt_tpu_torch.ops import _bvh, _closest
 
     mesh = scenes.urban_scene(16, 16, device=device).mesh
     if mesh.num_triangles != 9_218:
@@ -170,40 +347,49 @@ def run_ray_launching(device, closest: dict) -> None:
         raise AssertionError(msg)
     # The bench's 8 x 8 receivers, on the street crossings (street_receivers).
     scene = Scene(
-        transmitters=torch.tensor([[0.0, 0.0, 40.0]], device=device),
+        transmitters=torch.tensor([TX], device=device),
         receivers=street_receivers(device, 8, 8),
         mesh=mesh,
     )
+    time_closest_at_path_shapes(scene, kernels)
+    walls = {}
 
     def counted(label, fn, queries):
-        """Warm up, then run ``fn`` with the counts at 0; check they show only kernel launches."""
+        """Warm up, then run ``fn`` on a fresh mesh with the counts at 0; check
+        they show only kernel launches and one BVH build."""
         if ops.get_backend() != "auto":
             msg = f"the {label} run needs the 'auto' backend, not {ops.get_backend()!r}"
             raise AssertionError(msg)
-        fn()
+        fn(scene)
+        run_scene = fresh(scene)
         torch.cuda.synchronize()
-        _closest.LAUNCHES = _closest.REFERENCE_CALLS = 0
+        _closest.LAUNCHES = _closest.REFERENCE_CALLS = _bvh.BUILDS = 0
         start = time.perf_counter()
-        out = fn()
+        out = fn(run_scene)
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
-        counts = {"closest": _closest.LAUNCHES, "closest_plain": _closest.REFERENCE_CALLS}
-        if counts != {"closest": queries, "closest_plain": 0}:
-            msg = f"the {label} run did not go through the kernel only: {counts}"
+        counts = {
+            "closest": _closest.LAUNCHES,
+            "closest_plain": _closest.REFERENCE_CALLS,
+            "bvh_builds": _bvh.BUILDS,
+        }
+        if counts != {"closest": queries, "closest_plain": 0, "bvh_builds": 1}:
+            msg = f"the {label} run did not go through the kernel only, with one BVH build: {counts}"
             raise AssertionError(msg)
-        closest["launches"] = closest.get("launches", 0) + counts["closest"]
+        kernels["closest"]["launches"] = kernels["closest"].get("launches", 0) + counts["closest"]
+        walls[label] = wall
         return out, wall, counts
 
     def plain(fn):
         ops.set_backend("torch")
         try:
-            return fn()
+            return fn(scene)
         finally:
             ops.set_backend("auto")
 
     # Phase 6: SBR.
-    def sbr():
-        return scene.launch_paths(
+    def sbr(s):
+        return s.launch_paths(
             order=SBR_ORDER, solver="sbr", num_rays=SBR_RAYS, max_dist=SBR_MAX_DIST
         )
 
@@ -212,10 +398,10 @@ def run_ray_launching(device, closest: dict) -> None:
         msg = "SBR captured no order-0 or no higher-order path"
         raise AssertionError(msg)
     want = plain(sbr)
-    # Rays whose hits differ met an exact tie (Morton order breaks it another
-    # way). At each such ray's first differing bounce, both runs must reach
-    # the same point (the same t from the same ray); every other ray, and so
-    # every other mask, must be equal.
+    # Rays whose hits differ met an exact tie (the kernel's tie key breaks it
+    # another way than the plain scan). At each such ray's first differing
+    # bounce, both runs must reach the same point (the same t from the same
+    # ray); every other ray, and so every other mask, must be equal.
     hits, want_hits = paths.objects[0, 0, 0, :, 1:-1], want.objects[0, 0, 0, :, 1:-1]
     tie_rays = (hits != want_hits).any(dim=-1)
     if tie_rays.any():
@@ -242,8 +428,8 @@ def run_ray_launching(device, closest: dict) -> None:
     del paths, want
 
     # Phase 7: the MLM.
-    def mlm():
-        return scene.compute_tx_mlm(
+    def mlm(s):
+        return s.compute_tx_mlm(
             num_rays=MLM_RAYS, order=MLM_ORDER, grid_size=MLM_GRID, receiver_plane_z=1.5
         )
 
@@ -266,6 +452,48 @@ def run_ray_launching(device, closest: dict) -> None:
         f" counts={json.dumps(counts)} cells_differ={differ}",
         flush=True,
     )
+    return {"scene": scene, "sbr": sbr, "mlm": mlm}
+
+
+def profile(label: str, fn, kernel_names: tuple[str, ...]) -> None:
+    """Phase 8: one warm call of a path under torch.profiler: device busy
+    share, each port kernel's launches and mean device time, the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        print(f"phase 8 profile {label}: the profiler saw no device time", flush=True)
+        return
+    busy_us = sum(e.time_range.elapsed_us() for e in events)
+    by_name: dict[str, list[float]] = {}
+    for e in events:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    ours = {
+        k: f"{len(v)} launches, {sum(v) / len(v) / 1e3:.4f} ms each"
+        for k in kernel_names
+        for name, v in by_name.items()
+        if k in name
+    }
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:6]
+    top_text = "; ".join(
+        f"{name[:70]} {sum(v) / 1e3:.2f} ms ({100 * sum(v) / busy_us:.0f}%, {len(v)})"
+        for name, v in top
+    )
+    print(
+        f"phase 8 profile {label}: wall_ms={wall * 1e3:.1f} device_ms={busy_us / 1e3:.2f}"
+        f" busy={100 * busy_us / 1e3 / (wall * 1e3):.0f}% device_launches={len(events)}"
+        f" ours={json.dumps(ours)} top: {top_text}",
+        flush=True,
+    )
 
 
 def main() -> None:
@@ -277,7 +505,7 @@ def main() -> None:
 
     from differt_tpu_torch import coverage, scenes
     from differt_tpu_torch.geometry import Scene, generate_path_candidates
-    from differt_tpu_torch.ops import _build, _rt, _trace
+    from differt_tpu_torch.ops import _build, _bvh, _rt, _trace
     from differt_tpu_torch.rt._solvers import candidate_geometry
 
     device = torch.device("cuda", 0)
@@ -305,53 +533,18 @@ def main() -> None:
         f" kernel_build_s={build_s:.2f}",
         flush=True,
     )
+    for line in ptxas_lines(_build.ptxas_report()):
+        print(f"phase 1 ptxas {line}", flush=True)
 
-    city = scenes.urban_scene(24, 24, device=device)
-    mesh = city.mesh
+    mesh = scenes.urban_scene(24, 24, device=device).mesh
     if mesh.num_triangles != 20_738:
         msg = f"urban_scene(24, 24) has {mesh.num_triangles} triangles, expected 20,738"
         raise AssertionError(msg)
-    tv = mesh.triangle_vertices.contiguous()
+    tx = torch.tensor([TX], device=device)
+    city = Scene(transmitters=tx, receivers=street_receivers(device), mesh=mesh)
 
     # Phase 2: any-hit kernel against its plain version.
-    rng = np.random.default_rng(0)
-    lo, hi = mesh.bounding_box.cpu().numpy()
-    lo[2], hi[2] = 0.5, hi[2] + 10.0
-    start_pts = rng.uniform(lo, hi, (NUM_RAYS, 3)).astype(np.float32)
-    end_pts = rng.uniform(lo, hi, (NUM_RAYS, 3)).astype(np.float32)
-    active = np.arange(NUM_RAYS) % 8 != 0  # 1/8 inactive
-    thresh = np.where(active, 1.0 - 2.0 * HIT_TOL, -1.0).astype(np.float32)
-    ray_args = (
-        torch.from_numpy(start_pts).to(device),
-        torch.from_numpy(end_pts - start_pts).to(device),
-        tv,
-        None,
-    )
-    thresh_t = torch.from_numpy(thresh).to(device)
-    got = _rt.ray_intersect_any_triangle_cuda(*ray_args, hit_threshold=thresh_t)
-    want = _rt.ray_intersect_any_triangle_reference(*ray_args, hit_threshold=thresh_t)
-    mismatches = int((got != want).sum())
-    if mismatches:
-        msg = f"any-hit kernel disagrees with its plain version on {mismatches} rays"
-        raise AssertionError(msg)
-    ms = cuda_ms(lambda: _rt.ray_intersect_any_triangle_cuda(*ray_args, hit_threshold=thresh_t), 5)
-    plain_ms = cuda_ms(
-        lambda: _rt.ray_intersect_any_triangle_reference(*ray_args, hit_threshold=thresh_t), 2
-    )
-    kernels["anyhit"] = {
-        "name": "anyhit",
-        "route": "cuda",
-        "source": "differt_tpu_torch/csrc/anyhit.cu",
-        "replaces": "differt_tpu/ops/_pallas_rt.py:228",
-        "max_abs_err": float((got.int() - want.int()).abs().max()),
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }
-    print(
-        f"phase 2 anyhit: rays={NUM_RAYS} triangles={mesh.num_triangles}"
-        f" blocked={int(got.sum())} mismatches=0 kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}",
-        flush=True,
-    )
+    check_anyhit(device, mesh, city, kernels)
 
     # Phase 3: fused trace kernel against its plain version.
     def trace_inputs(scene, candidates):
@@ -369,7 +562,8 @@ def main() -> None:
     def check_trace(label, scene, candidates, order, *, want_valid=False):
         args = trace_inputs(scene, candidates)
         kw = {"order": order, **TRACE_KW}
-        verts, mask = _trace.trace_specular_cuda(*args, **kw)
+        bvh = scene.mesh.bvh
+        verts, mask = _trace.trace_specular_cuda(*args, **kw, bvh=bvh)
         want_verts, want_mask = _trace.trace_specular_reference(*args, **kw)
         mismatches = int((mask != want_mask).sum())
         if mismatches:
@@ -382,14 +576,50 @@ def main() -> None:
         if not err <= 1e-4:
             msg = f"trace kernel vertices differ by {err} ({label})"
             raise AssertionError(msg)
-        ms = cuda_ms(lambda: _trace.trace_specular_cuda(*args, **kw), 5)
+        # Invalid paths keep their raw vertices, as in the plain version.
+        raw = ~mask[..., None, None] & torch.isfinite(want_verts)
+        raw_err = float((verts[raw] - want_verts[raw]).abs().max()) if raw.any() else 0.0
+        tx_v, rx_v, mv, mn, tris = args[:5]
+        mirrors = torch.cat((mv, mn), dim=-1).contiguous()
+        v0 = tris[..., 0, :]
+        cand = torch.cat((v0, tris[..., 1, :] - v0, tris[..., 2, :] - v0), dim=-1).contiguous()
+        tpm = tris.shape[1] // order
+        verts_out, mask_out = torch.empty_like(verts), torch.empty_like(mask)
+        kernel_ms = cuda_ms(
+            lambda: _trace.launch_trace(
+                tx_v, rx_v, mirrors, cand, bvh, order, tpm, *TRACE_KW.values(), verts_out, mask_out
+            ),
+            20,
+        )
+        ms = cuda_ms(lambda: _trace.trace_specular_cuda(*args[:5], None, None, **kw, bvh=bvh), 20)
+        build_ms = cuda_ms(lambda: _trace.trace_specular_cuda(*args, **kw), 3)
         plain_ms = cuda_ms(lambda: _trace.trace_specular_reference(*args, **kw), 2)
+        paths = mask.numel()
+        num_bytes = (
+            sum(x.numel() * 4 for x in (tx_v, rx_v, mirrors, cand))
+            + mesh_bytes(args[5], args[6])
+            + verts.numel() * 4
+            + paths
+        )
+        bound_ms, bound_by = bound(num_bytes, trace_flops(paths, order, tpm))
         print(
-            f"phase 3 trace {label}: paths={mask.numel()} valid={int(mask.sum())}"
-            f" mismatches=0 max_abs_err={err:.3g} kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}",
+            f"phase 3 trace {label}: paths={paths} valid={int(mask.sum())}"
+            f" mismatches=0 max_abs_err={err:.3g} raw_vertex_err={raw_err:.3g}"
+            f" kernel_only_ms={kernel_ms:.4f} wrapper_ms={ms:.4f}"
+            f" wrapper_with_build_ms={build_ms:.3f} plain_ms={plain_ms:.3f}"
+            f" bound_ms={bound_ms:.5f} ({bound_by}, {num_bytes} bytes)",
             flush=True,
         )
-        return err, ms, plain_ms
+        row = {
+            "max_abs_err": err,
+            "kernel_only_ms": kernel_ms,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,  # No single PyTorch call computes the fused trace.
+        }
+        return row
 
     canyon = Scene(
         transmitters=torch.tensor([[-30.0, 0.0, 20.0]], device=device),
@@ -398,43 +628,26 @@ def main() -> None:
     trace_errors = []
     for order in (1, 2):
         candidates = generate_path_candidates(canyon.mesh.num_primitives, order, device=device)
-        trace_errors.append(
-            check_trace(f"(a) canyon order {order}", canyon, candidates, order, want_valid=True)[0]
-        )
+        row = check_trace(f"(a) canyon order {order}", canyon, candidates, order, want_valid=True)
+        trace_errors.append(row["max_abs_err"])
 
     # (b) The bench's shape: the first 4,096 order-2 candidates x a 16 x 8
     # grid over the bounding box. Every one of those paths is invalid (the
     # candidates bounce first on the far corner block, and the receivers
     # sit inside buildings or beyond the city), so (c) adds candidates and
     # receivers with valid paths, for the vertices to be compared.
-    tx = torch.tensor([[0.0, 0.0, 40.0]], device=device)
     bench_grid = Scene(transmitters=tx, mesh=mesh).with_receivers_grid(16, 8)
     candidates = generate_path_candidates(mesh.num_primitives, 2, size=4096, device=device)
-    err, ms, plain_ms = check_trace("(b) city order 2, bench shape", bench_grid, candidates, 2)
-    trace_errors.append(err)
-    city = Scene(transmitters=tx, receivers=street_receivers(device), mesh=mesh)
+    row = check_trace("(b) city order 2, bench shape", bench_grid, candidates, 2)
+    trace_errors.append(row["max_abs_err"])
     # All ordered pairs of the 91 triangles nearest the TX: 8,190 candidates.
     centroids = mesh.triangle_vertices.mean(dim=1)[:, :2]
     near = torch.argsort(centroids.norm(dim=-1))[:91]
     pairs = torch.cartesian_prod(near, near)
     pairs = pairs[pairs[:, 0] != pairs[:, 1]]
-    trace_errors.append(
-        check_trace("(c) city order 2, near pairs", city, pairs, 2, want_valid=True)[0]
-    )
-    prep_ms = cuda_ms(lambda: _rt.prepare_mesh(tv, None), 5)
-    print(f"phase 3 mesh preparation (Morton sort and boxes, in each call above): {prep_ms:.3f} ms")
-    kernels["trace"] = {
-        "name": "trace",
-        "route": "cuda",
-        "source": "differt_tpu_torch/csrc/trace.cu",
-        "replaces": "differt_tpu/ops/_pallas_trace.py:120",
-        "max_abs_err": max(trace_errors),
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }
-
-    # Phase 4: the main path, counted.
-    materials = {"eta_r": [5.24], "conductivity": [0.1]}
+    row = check_trace("(c) city order 2, near pairs", city, pairs, 2, want_valid=True)
+    trace_errors.append(row["max_abs_err"])
+    # (d) A main-path call: the first of the order-2 chunks of phase 4.
     # Order-2 candidates whose first bounce is on the block south-west of
     # the TX (block (11, 11), 36 triangles a block): the first 1,048,576
     # candidates, as the bench decodes them, all bounce first on the far
@@ -443,31 +656,29 @@ def main() -> None:
     main_candidates = generate_path_candidates(
         mesh.num_primitives, 2, start=first, size=MAIN_CANDIDATES, device=device
     )
+    row = check_trace("(d) main path chunk", city, main_candidates[:4096], 2)
+    trace_errors.append(row["max_abs_err"])
+    kernels["trace"] = {
+        "name": "trace",
+        "route": "cuda",
+        "source": "differt_tpu_torch/csrc/trace.cu",
+        "replaces": "differt_tpu/ops/_pallas_trace.py:120",
+        "shape": "main path order 2 chunk: 4,096 candidates x 128 RX x 20,738 triangles",
+        **row,
+        "max_abs_err": max(trace_errors),
+    }
+
+    # Phase 4: the main path, counted: each order's call on a fresh mesh.
+    materials = {"eta_r": [5.24], "conductivity": [0.1]}
     runs = (
         (0, None, 1),
         (1, None, mesh.num_primitives),
         (2, main_candidates, MAIN_CANDIDATES),
     )
-    # Warm-up: the first CUDA call of each complex-valued PyTorch op compiles
-    # it at run time (about a second in all), which is set-up, not the path.
-    for order, candidates, _ in runs:
-        coverage.power_map_chunked(
-            city,
-            FREQUENCY,
-            order=order,
-            path_candidates=None if candidates is None else candidates[:4096],
-            candidate_chunk=4096,
-            rx_chunk=128,
-            **materials,
-        )
-    torch.cuda.synchronize()
-    _rt.LAUNCHES = _trace.LAUNCHES = 0
-    _rt.REFERENCE_CALLS = _trace.REFERENCE_CALLS = 0
-    maps = {}
-    for order, candidates, num_candidates in runs:
-        start = time.perf_counter()
-        power = coverage.power_map_chunked(
-            city,
+
+    def coverage_run(scene, order, candidates):
+        return coverage.power_map_chunked(
+            scene,
             FREQUENCY,
             order=order,
             path_candidates=candidates,
@@ -475,13 +686,29 @@ def main() -> None:
             rx_chunk=128,
             **materials,
         )
+
+    # Warm-up: the first CUDA call of each complex-valued PyTorch op compiles
+    # it at run time (about a second in all), which is set-up, not the path.
+    for order, candidates, _ in runs:
+        coverage_run(city, order, None if candidates is None else candidates[:4096])
+    torch.cuda.synchronize()
+    _rt.LAUNCHES = _trace.LAUNCHES = 0
+    _rt.REFERENCE_CALLS = _trace.REFERENCE_CALLS = 0
+    maps, builds = {}, {}
+    for order, candidates, num_candidates in runs:
+        run_city = fresh(city)
+        _bvh.BUILDS = 0
+        start = time.perf_counter()
+        power = coverage_run(run_city, order, candidates)
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
+        builds[order] = _bvh.BUILDS
         maps[order] = power
         rate = num_candidates * city.num_receivers / wall
         print(
             f"phase 4 main path order {order}: candidates={num_candidates}"
-            f" rx={city.num_receivers} wall_s={wall:.4f} paths_per_s={rate:.4g}",
+            f" rx={city.num_receivers} wall_s={wall:.4f} paths_per_s={rate:.4g}"
+            f" bvh_builds={builds[order]}",
             flush=True,
         )
     counts = {
@@ -498,11 +725,12 @@ def main() -> None:
     if not sum(lit.values()):
         msg = "the coverage map (orders 0-2) is all zero"
         raise AssertionError(msg)
-    if counts["anyhit"] == 0 or counts["trace"] == 0:
-        msg = f"the main path skipped a kernel: {counts}"
+    want_counts = {"anyhit": 1, "trace": 6 + 256, "anyhit_plain": 0, "trace_plain": 0}
+    if counts != want_counts:
+        msg = f"the main path's launches are {counts}, expected {want_counts}"
         raise AssertionError(msg)
-    if counts["anyhit_plain"] or counts["trace_plain"]:
-        msg = f"the main path used a plain version on the card: {counts}"
+    if any(n != 1 for n in builds.values()):
+        msg = f"the main path built the BVH {builds} times per order, expected once"
         raise AssertionError(msg)
     kernels["anyhit"]["launches"] = counts["anyhit"]
     kernels["trace"]["launches"] = counts["trace"]
@@ -531,14 +759,27 @@ def main() -> None:
             msg = f"order-{order} map differs from the unfused pipeline by {errors[order]} dB"
             raise AssertionError(msg)
     print(
-        f"phase 4 counts: {json.dumps(counts)}; lit pixels per order: {json.dumps(lit)};"
+        f"phase 4 counts: {json.dumps(counts)}; bvh builds per order: {json.dumps(builds)};"
+        f" lit pixels per order: {json.dumps(lit)};"
         f" fused vs unfused max_err_db: {json.dumps(errors)}",
         flush=True,
     )
 
-    kernels["closest"] = check_closest_kernel(device)
-    run_ray_launching(device, kernels["closest"])
+    check_closest(device, kernels)
+    launching = run_ray_launching(device, kernels)
 
+    order2 = main_candidates[: 32 * 4096]
+    profile("coverage order 2, 32 chunks", lambda: coverage_run(city, 2, order2), ("trace_kernel",))
+    profile("coverage order 0", lambda: coverage_run(city, 0, None), ("anyhit_kernel",))
+    profile("SBR", lambda: launching["sbr"](launching["scene"]), ("closest_kernel",))
+    profile("MLM", lambda: launching["mlm"](launching["scene"]), ("closest_kernel",))
+
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "kernel_only_ms"}
+    for name, entry in kernels.items():
+        if missing := keys - entry.keys():
+            msg = f"the {name} entry of the kernels line lacks {sorted(missing)}"
+            raise AssertionError(msg)
     print(f"card: {smi}")
     print(json.dumps({"kernels": [kernels[k] for k in ("anyhit", "trace", "closest")]}))
     print(

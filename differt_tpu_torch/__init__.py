@@ -6,9 +6,12 @@ image-method tracing with its checks, the slab-Fresnel Jones chain and
 chunked power maps). Ray launching: SBR (``Scene.launch_paths``), the
 multipath lifetime map (``Scene.compute_tx_mlm``) and the differentiable
 closest hit. Three hand-written CUDA kernels carry them on the card
-(``csrc/anyhit.cu``, ``csrc/trace.cu``, ``csrc/closest.cu``); each has a
-plain PyTorch version, which CPU tensors use (``ops.set_backend`` picks
-otherwise). The package never imports JAX.
+(``csrc/anyhit.cu``, ``csrc/trace.cu``, ``csrc/closest.cu``), walking a
+BVH that each mesh builds once (``Mesh.bvh``); each has a plain PyTorch
+version, which CPU tensors use (``ops.set_backend`` picks otherwise). The
+entry points that make tensors (scenes, ``Mesh`` constructors, candidates,
+the lattice, ``interop``) build on the card unless given
+``device="cpu"``. The package never imports JAX.
 """
 
 from . import coverage, em, geometry, interop, ops, rt, scenes, utils

@@ -203,7 +203,7 @@ def power_map(
 
     >>> import torch
     >>> from differt_tpu_torch.geometry import Mesh, Scene
-    >>> mesh = Mesh.box(20.0, 10.0, 6.0, with_top=False).set_materials("Concrete")
+    >>> mesh = Mesh.box(20.0, 10.0, 6.0, with_top=False, device="cpu").set_materials("Concrete")
     >>> scene = Scene(transmitters=torch.tensor([[-5.0, 0.0, 1.0]]), mesh=mesh)
     >>> power = power_map(scene.with_receivers_grid(4, 2, height=1.0), 2.4e9, order=1)
     >>> tuple(power.shape), bool((power > 0).all())

@@ -7,30 +7,33 @@
 // A negative (or NaN) threshold marks an inactive ray, which returns at once.
 //
 // What bounds it on the H100: the Möller–Trumbore tests a ray cannot cull,
-// and the divergence between rays of one warp that walk different chunks.
+// and the divergence between rays of one warp that walk different branches.
 // The mesh is small next to the 50 MB L2 (20,738 triangles are 1 MB), so
-// device memory traffic is not the limit. The design: one thread per ray,
-// walking Morton-sorted 64-triangle chunks behind two levels of AABB tests
-// (tiles of 8 chunks, then chunks) with an early exit at the first hit;
-// neighbouring rays of the caller's layout share most culling decisions.
+// device memory traffic is not the limit. The design: one thread per ray
+// down the mesh's BVH (mt.cuh::any_hit: the large-triangle list first, then
+// the tree, with its top staged in shared memory once per block), exiting
+// at the first hit.
 
 #include "mt.cuh"
 
 namespace differt {
 
-__global__ void __launch_bounds__(128)
+constexpr int kAnyhitThreads = 256;
+constexpr int kAnyhitTop = 1023;  // Top ten levels of the tree: 32 KB of shared memory.
+
+__global__ void __launch_bounds__(kAnyhitThreads)
     anyhit_kernel(const float* __restrict__ origins, const float* __restrict__ directions,
-                  const float* __restrict__ thresh, const float4* __restrict__ mesh,
-                  const float4* __restrict__ chunk_box, const float4* __restrict__ tile_box,
-                  int num_rays, int num_chunks, float eps, unsigned char* __restrict__ out) {
+                  const float* __restrict__ thresh, Bvh bvh, int num_rays, float eps,
+                  unsigned char* __restrict__ out) {
+  __shared__ float4 top[2 * kAnyhitTop];
+  const int num_top = min(bvh.num_nodes, kAnyhitTop);
+  stage_top(top, bvh.nodes, num_top);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= num_rays) return;
   const float th = thresh[i];
   bool hit = false;
   if (th >= 0.0f) {
-    const Vec3 o = load3(origins + 3 * i);
-    const Vec3 d = load3(directions + 3 * i);
-    hit = any_hit(o, d, th, mesh, chunk_box, tile_box, num_chunks, eps);
+    hit = any_hit(load3(origins + 3 * i), load3(directions + 3 * i), th, bvh, top, num_top, eps);
   }
   out[i] = hit ? 1 : 0;
 }
@@ -38,14 +41,13 @@ __global__ void __launch_bounds__(128)
 }  // namespace differt
 
 extern "C" int differt_anyhit(const float* origins, const float* directions, const float* thresh,
-                              const float* mesh, const float* chunk_box, const float* tile_box,
-                              int num_rays, int num_chunks, float epsilon, unsigned char* out,
-                              void* stream) {
-  constexpr int kThreads = 128;
-  const int blocks = (num_rays + kThreads - 1) / kThreads;
-  differt::anyhit_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      origins, directions, thresh, reinterpret_cast<const float4*>(mesh),
-      reinterpret_cast<const float4*>(chunk_box), reinterpret_cast<const float4*>(tile_box),
-      num_rays, num_chunks, epsilon, out);
+                              const float* nodes, const float* tris, int num_nodes,
+                              int large_begin, int num_large, int num_rays, float epsilon,
+                              unsigned char* out, void* stream) {
+  const differt::Bvh bvh{reinterpret_cast<const float4*>(nodes),
+                         reinterpret_cast<const float4*>(tris), num_nodes, large_begin, num_large};
+  const int blocks = (num_rays + differt::kAnyhitThreads - 1) / differt::kAnyhitThreads;
+  differt::anyhit_kernel<<<blocks, differt::kAnyhitThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      origins, directions, thresh, bvh, num_rays, epsilon, out);
   return static_cast<int>(cudaGetLastError());
 }

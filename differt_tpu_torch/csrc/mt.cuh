@@ -1,19 +1,35 @@
 // Device functions shared by the any-hit, closest-hit and fused trace kernels:
-// Möller–Trumbore, the conservative slab test, and the any-hit and closest-hit
-// sweeps over a Morton-sorted mesh with two levels of AABB culling.
+// Möller–Trumbore, the conservative slab test, and the any-hit and
+// closest-hit traversals of the mesh's BVH.
 //
 // Float semantics follow the JAX reference op for op (differt_tpu/ops/
 // _pallas_rt.py::_mt_chunk and ::_slab_overlap): the library is built with
 // --fmad=false, so `a*b + c` rounds the product and the sum separately, and
 // `inv = 1/det; u = inv*(s.h)` is kept as written rather than `(s.h)/det`.
 //
-// Mesh layout, built by differt_tpu_torch/ops/_rt.py::prepare_mesh:
-//   mesh       [num_chunks * kChunk][12] float: v0 xyz, e1 xyz, e2 xyz,
-//              active (1 or 0), 2 pad. Triangles sorted along a Morton curve,
-//              padded with inactive zeros to a whole chunk.
-//   chunk_box  [num_chunks][8] float: min xyz, any-active flag, max xyz, pad.
-//              Boxes carry a relative margin, so rounding never culls a hit.
-//   tile_box   [ceil(num_chunks / kChunksPerTile)][8], the same per tile.
+// The BVH, built once per mesh by differt_tpu_torch/ops/_bvh.py::build_bvh:
+//   tris   [num_records][12] float: v0 xyz, e1 xyz, e2 xyz, active (1 or 0),
+//          the triangle's Morton position (int bits), 0. First the tree's
+//          triangles in Morton order, leaf by leaf (the last leaf padded with
+//          inactive zeros), then the large-triangle list at large_begin.
+//   nodes  [num_nodes][8]: min xyz, link (int bits), max xyz, flags (int
+//          bits); 32 bytes, one sector. A complete binary tree in heap order
+//          (root 0). link: an inner node's first child (the second follows
+//          it), a leaf's first triangle record. flags: kLeaf, kAlive (holds an
+//          active triangle), and a leaf's triangle count from bit 2. Boxes
+//          carry a relative margin, so rounding never culls a hit.
+//
+// The traversals test the large list (the ground of a city: triangles
+// whose box is a large share of the mesh's) first, then walk the tree
+// with a stack, entering a node only if it holds an active triangle and
+// the inclusive slab test (tnear <= tfar) passes over [0, t_hi]: t_hi is
+// the threshold for any-hit, the best t so far for closest-hit. The top
+// of the tree sits in shared memory (stage_top), the rest is read through
+// the read-only cache; a mesh of 20,000 triangles is about 1 MB and stays
+// in L2.
+//
+// Tensor cores do not apply: a ray-triangle test is a handful of cross and
+// dot products per pair, with no matrix product to feed them.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -21,9 +37,11 @@
 
 namespace differt {
 
-constexpr int kChunk = 64;          // Triangles per culling chunk.
-constexpr int kChunksPerTile = 8;   // Chunks per first-level culling tile.
-constexpr float kSlabTiny = 1e-30f; // |d| below this counts as +-1e-30.
+constexpr float kSlabTiny = 1e-30f;  // |d| below this counts as +-1e-30.
+constexpr int kMaxDepth = 30;        // Stack of the walk; the wrapper checks the tree's depth.
+constexpr int kLeaf = 1;             // Node flag: a leaf.
+constexpr int kAlive = 2;            // Node flag: holds an active triangle.
+constexpr int kTieChunk = 64;        // Chunk of Morton positions in the closest-hit tie key.
 
 struct Vec3 {
   float x, y, z;
@@ -69,16 +87,32 @@ __device__ __forceinline__ bool mt_hit(Vec3 o, Vec3 d, Vec3 v0, Vec3 e1, Vec3 e2
   return fabsf(det) > eps && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f && t > eps;
 }
 
+// Möller–Trumbore against one triangle record; false for an inactive one.
+// Writes t and the triangle's Morton position.
+__device__ __forceinline__ bool record_hit(Vec3 o, Vec3 d, const float4* __restrict__ rec,
+                                           float eps, float* t, int* pos) {
+  const float4 c = __ldg(rec + 2);
+  if (c.y == 0.0f) return false;
+  const float4 a = __ldg(rec);
+  const float4 b = __ldg(rec + 1);
+  *pos = __float_as_int(c.z);
+  return mt_hit(o, d, {a.x, a.y, a.z}, {a.w, b.x, b.y}, {b.z, b.w, c.x}, eps, t);
+}
+
 // Reciprocal of a direction component with the reference's tiny-value clamp.
 __device__ __forceinline__ float slab_inv(float dc) {
   const float denom = fabsf(dc) < kSlabTiny ? (dc < 0.0f ? -kSlabTiny : kSlabTiny) : dc;
   return 1.0f / denom;
 }
 
+__device__ __forceinline__ Vec3 slab_inv3(Vec3 d) {
+  return {slab_inv(d.x), slab_inv(d.y), slab_inv(d.z)};
+}
+
 // Conservative segment-vs-box test over t in [0, t_hi]: never a false miss.
-__device__ __forceinline__ bool slab_overlap(Vec3 o, Vec3 inv_d, const float4* box, float t_hi) {
-  const float4 lo = box[0];
-  const float4 hi = box[1];
+// Writes the entry t (tnear), which orders and culls the walk.
+__device__ __forceinline__ bool slab_overlap(Vec3 o, Vec3 inv_d, float4 lo, float4 hi, float t_hi,
+                                             float* t_enter) {
   float tnear = 0.0f;
   float tfar = t_hi;
   float t1 = (lo.x - o.x) * inv_d.x, t2 = (hi.x - o.x) * inv_d.x;
@@ -92,80 +126,162 @@ __device__ __forceinline__ bool slab_overlap(Vec3 o, Vec3 inv_d, const float4* b
   t2 = (hi.z - o.z) * inv_d.z;
   tnear = fmaxf(tnear, fminf(t1, t2));
   tfar = fminf(tfar, fmaxf(t1, t2));
+  *t_enter = tnear;
   return tnear <= tfar;
 }
 
-// Does o + t d hit any active triangle with eps < t < thresh? Walks tiles,
-// then chunks, skipping every box with no active triangle or no overlap,
-// and returns at the first hit.
-__device__ inline bool any_hit(Vec3 o, Vec3 d, float thresh, const float4* __restrict__ mesh,
-                               const float4* __restrict__ chunk_box,
-                               const float4* __restrict__ tile_box, int num_chunks, float eps) {
-  const Vec3 inv_d = {slab_inv(d.x), slab_inv(d.y), slab_inv(d.z)};
-  const int num_tiles = (num_chunks + kChunksPerTile - 1) / kChunksPerTile;
-  for (int tile = 0; tile < num_tiles; ++tile) {
-    const float4* tb = tile_box + 2 * tile;
-    if (__ldg(&tb[0].w) == 0.0f || !slab_overlap(o, inv_d, tb, thresh)) continue;
-    const int chunk_end = min(num_chunks, (tile + 1) * kChunksPerTile);
-    for (int chunk = tile * kChunksPerTile; chunk < chunk_end; ++chunk) {
-      const float4* cb = chunk_box + 2 * chunk;
-      if (__ldg(&cb[0].w) == 0.0f || !slab_overlap(o, inv_d, cb, thresh)) continue;
-      const float4* tri = mesh + 3 * kChunk * chunk;
-      for (int j = 0; j < kChunk; ++j, tri += 3) {
-        const float4 a = __ldg(tri);
-        const float4 b = __ldg(tri + 1);
-        const float4 c = __ldg(tri + 2);
-        if (c.y == 0.0f) continue;  // Inactive or padding.
-        float t;
-        const bool hit = mt_hit(o, d, {a.x, a.y, a.z}, {a.w, b.x, b.y}, {b.z, b.w, c.x}, eps, &t);
-        if (hit && t < thresh) return true;
-      }
-    }
+struct Bvh {
+  const float4* __restrict__ nodes;  // [num_nodes][2]
+  const float4* __restrict__ tris;   // [num_records][3]
+  int num_nodes;
+  int large_begin;  // First record of the large-triangle list.
+  int num_large;
+};
+
+// Copies the first `count` nodes of the tree into shared memory with
+// cp.async (16 bytes a copy) and waits for them. Every thread of the block
+// calls it.
+__device__ inline void stage_top(float4* top, const float4* __restrict__ nodes, int count) {
+  for (int i = threadIdx.x; i < 2 * count; i += blockDim.x) {
+    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(top + i));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(nodes + i));
   }
-  return false;
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
 }
 
-// Nearest active triangle hit by o + t d with t > eps: returns its position in
-// the sorted mesh and writes its t, or returns -1 and writes +inf. Tiles and
-// chunks whose box lies beyond the best t so far are skipped. The contract of
-// the reference kernel (_pallas_rt.py::_closest_kernel): within a chunk the
-// first minimum wins; across chunks an equal t in the later chunk wins.
-__device__ inline int closest_hit(Vec3 o, Vec3 d, const float4* __restrict__ mesh,
-                                  const float4* __restrict__ chunk_box,
-                                  const float4* __restrict__ tile_box, int num_chunks, float eps,
-                                  float* t_out) {
-  const Vec3 inv_d = {slab_inv(d.x), slab_inv(d.y), slab_inv(d.z)};
-  const int num_tiles = (num_chunks + kChunksPerTile - 1) / kChunksPerTile;
-  float best_t = CUDART_INF_F;
-  int best = -1;
-  for (int tile = 0; tile < num_tiles; ++tile) {
-    const float4* tb = tile_box + 2 * tile;
-    if (__ldg(&tb[0].w) == 0.0f || !slab_overlap(o, inv_d, tb, best_t)) continue;
-    const int chunk_end = min(num_chunks, (tile + 1) * kChunksPerTile);
-    for (int chunk = tile * kChunksPerTile; chunk < chunk_end; ++chunk) {
-      const float4* cb = chunk_box + 2 * chunk;
-      if (__ldg(&cb[0].w) == 0.0f || !slab_overlap(o, inv_d, cb, best_t)) continue;
-      const float4* tri = mesh + 3 * kChunk * chunk;
-      float chunk_t = CUDART_INF_F;
-      int chunk_arg = -1;
-      for (int j = 0; j < kChunk; ++j, tri += 3) {
-        const float4 a = __ldg(tri);
-        const float4 b = __ldg(tri + 1);
-        const float4 c = __ldg(tri + 2);
-        if (c.y == 0.0f) continue;  // Inactive or padding.
-        float t;
-        const bool hit = mt_hit(o, d, {a.x, a.y, a.z}, {a.w, b.x, b.y}, {b.z, b.w, c.x}, eps, &t);
-        if (hit && t < chunk_t) {
-          chunk_t = t;
-          chunk_arg = kChunk * chunk + j;
-        }
+// A node: from shared memory if it is among the first `num_top`.
+__device__ __forceinline__ void fetch_node(const Bvh& bvh, const float4* top, int num_top, int i,
+                                           float4* lo, float4* hi) {
+  if (i < num_top) {
+    *lo = top[2 * i];
+    *hi = top[2 * i + 1];
+  } else {
+    *lo = __ldg(bvh.nodes + 2 * i);
+    *hi = __ldg(bvh.nodes + 2 * i + 1);
+  }
+}
+
+// Walks the tree for o + t d, t in [0, t_hi], calling visit_leaf(first
+// record, count) on each leaf reached; a true return ends the walk. With
+// kNearFirst the child entered first is the one the ray enters first. The
+// stack keeps (link, flags, entry t) of the nodes still to visit, so a node
+// is read once; an entry whose t has passed t_hi (closest-hit's best t,
+// which only shrinks) is dropped when popped, as its slab test would now
+// fail.
+template <bool kNearFirst, typename LeafFn>
+__device__ __forceinline__ void walk_tree(Vec3 o, Vec3 inv_d, const Bvh& bvh, const float4* top,
+                                          int num_top, const float& t_hi, LeafFn&& visit_leaf) {
+  int stack_link[kMaxDepth];
+  int stack_flags[kMaxDepth];
+  float stack_t[kMaxDepth];
+  int sp = 0;
+  float4 lo, hi;
+  fetch_node(bvh, top, num_top, 0, &lo, &hi);
+  int flags = __float_as_int(hi.w);
+  float t_enter;
+  if (!(flags & kAlive) || !slab_overlap(o, inv_d, lo, hi, t_hi, &t_enter)) return;
+  int link = __float_as_int(lo.w);
+  while (true) {
+    if (flags & kLeaf) {
+      if (visit_leaf(link, flags >> 2)) return;
+    } else {
+      float4 alo, ahi, blo, bhi;
+      fetch_node(bvh, top, num_top, link, &alo, &ahi);
+      fetch_node(bvh, top, num_top, link + 1, &blo, &bhi);
+      const int fa = __float_as_int(ahi.w);
+      const int fb = __float_as_int(bhi.w);
+      float ta, tb;
+      const bool ha = (fa & kAlive) && slab_overlap(o, inv_d, alo, ahi, t_hi, &ta);
+      const bool hb = (fb & kAlive) && slab_overlap(o, inv_d, blo, bhi, t_hi, &tb);
+      if (ha && hb) {
+        const bool b_first = kNearFirst && tb < ta;
+        stack_link[sp] = __float_as_int(b_first ? alo.w : blo.w);
+        stack_flags[sp] = b_first ? fa : fb;
+        stack_t[sp] = b_first ? ta : tb;
+        ++sp;
+        link = __float_as_int(b_first ? blo.w : alo.w);
+        flags = b_first ? fb : fa;
+        continue;
       }
-      if (chunk_arg >= 0 && chunk_t <= best_t) {
-        best_t = chunk_t;
-        best = chunk_arg;
+      if (ha || hb) {
+        link = __float_as_int(ha ? alo.w : blo.w);
+        flags = ha ? fa : fb;
+        continue;
       }
     }
+    bool found = false;
+    while (sp > 0 && !found) {
+      --sp;
+      if (stack_t[sp] <= t_hi) {
+        link = stack_link[sp];
+        flags = stack_flags[sp];
+        found = true;
+      }
+    }
+    if (!found) return;
   }
+}
+
+// Does o + t d hit any active triangle with eps < t < thresh? Returns at
+// the first hit.
+__device__ inline bool any_hit(Vec3 o, Vec3 d, float thresh, const Bvh& bvh, const float4* top,
+                               int num_top, float eps) {
+  float t;
+  int pos;
+  for (int i = 0; i < bvh.num_large; ++i) {
+    if (record_hit(o, d, bvh.tris + 3 * (bvh.large_begin + i), eps, &t, &pos) && t < thresh) {
+      return true;
+    }
+  }
+  bool hit = false;
+  walk_tree<false>(o, slab_inv3(d), bvh, top, num_top, thresh, [&](int first, int count) {
+    for (int j = 0; j < count; ++j) {
+      if (record_hit(o, d, bvh.tris + 3 * (first + j), eps, &t, &pos) && t < thresh) {
+        hit = true;
+        return true;
+      }
+    }
+    return false;
+  });
+  return hit;
+}
+
+// The closest-hit tie key. A smaller t wins; on an equal t, the larger
+// Morton chunk (pos / 64), then the smaller position: the rule of the
+// reference kernel (_pallas_rt.py::_closest_kernel), which walks 64-triangle
+// chunks in Morton order, keeps the first minimum within a chunk and lets an
+// equal t in a later chunk win. A key makes the result independent of the
+// walk's order. A hit at t = inf never counts, as in the reference.
+__device__ __forceinline__ bool closer(float t, int pos, float best_t, int best) {
+  if (t < best_t) return true;
+  if (!(t == best_t) || best < 0) return false;
+  const int chunk = pos / kTieChunk;
+  const int best_chunk = best / kTieChunk;
+  return chunk > best_chunk || (chunk == best_chunk && pos < best);
+}
+
+// Nearest active triangle hit by o + t d with t > eps: returns its Morton
+// position and writes its t, or returns -1 and writes +inf. Nodes whose
+// box the ray enters after the best t so far are skipped; the large list,
+// tested first, gives most rays an early best t.
+__device__ inline int closest_hit(Vec3 o, Vec3 d, const Bvh& bvh, const float4* top, int num_top,
+                                  float eps, float* t_out) {
+  float best_t = CUDART_INF_F;
+  int best = -1;
+  auto test = [&](int rec) {
+    float t;
+    int pos;
+    if (record_hit(o, d, bvh.tris + 3 * rec, eps, &t, &pos) && closer(t, pos, best_t, best)) {
+      best_t = t;
+      best = pos;
+    }
+  };
+  for (int i = 0; i < bvh.num_large; ++i) test(bvh.large_begin + i);
+  walk_tree<true>(o, slab_inv3(d), bvh, top, num_top, best_t, [&](int first, int count) {
+    for (int j = 0; j < count; ++j) test(first + j);
+    return false;
+  });
   *t_out = best_t;
   return best;
 }

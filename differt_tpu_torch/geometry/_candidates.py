@@ -89,13 +89,15 @@ def generate_path_candidates(
     *,
     start: int = 0,
     size: int | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> torch.Tensor:
-    """Generate (a chunk of) all loop-free path candidates.
+    """Generate (a chunk of) all loop-free path candidates, on the card unless ``device`` says otherwise.
 
-    >>> generate_path_candidates(3, 2).tolist()
+    >>> generate_path_candidates(3, 2, device="cpu").tolist()
     [[0, 1], [0, 2], [1, 0], [1, 2], [2, 0], [2, 1]]
     """
+    if device is None:
+        device = torch.device("cuda")
     total = count_path_candidates(num_primitives, order)
     if size is None:
         size = max(total - start, 0)

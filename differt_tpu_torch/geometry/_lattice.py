@@ -41,9 +41,10 @@ def fibonacci_lattice(
 
     With ``frustum`` (min and max rows of ``(polar, azimuth)``; a leading
     radial column is ignored), the points are spread uniformly in solid
-    angle within it, on the frustum's device and dtype.
+    angle within it, on the frustum's device and dtype; otherwise on
+    ``device``, the card when None.
 
-    >>> pts = fibonacci_lattice(100)
+    >>> pts = fibonacci_lattice(100, device="cpu")
     >>> tuple(pts.shape), bool(((pts * pts).sum(-1) - 1.0).abs().max() < 1e-6)
     ((100, 3), True)
     """
@@ -56,6 +57,8 @@ def fibonacci_lattice(
     elif dtype is not None and not dtype.is_floating_point:
         msg = f"fibonacci_lattice needs a floating dtype, got {dtype!r}."
         raise ValueError(msg)
+    elif device is None:
+        device = torch.device("cuda")
 
     i = torch.arange(n, dtype=torch.float32, device=device)
     frac = _golden_fractions(i)

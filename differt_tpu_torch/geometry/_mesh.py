@@ -3,6 +3,11 @@
 A :class:`Mesh` is a frozen dataclass of tensors; edits return new meshes
 through :func:`dataclasses.replace`. Triangle indices are ``int64`` (what
 PyTorch indexing takes) where the JAX package keeps ``int32``.
+
+The constructors build on the card (``device=None`` means
+``torch.device("cuda")``) unless asked for another device. A mesh keeps
+the kernels' acceleration structure (:attr:`Mesh.bvh`), built at first use
+and rebuilt when its tensors are edited in place.
 """
 
 import dataclasses
@@ -12,11 +17,16 @@ import torch
 from ._vectors import _cross, normalize, orthogonal_basis
 
 
+def _on_card(device: torch.device | str | None) -> torch.device | str:
+    """The constructors' device: the card unless the caller names another."""
+    return torch.device("cuda") if device is None else device
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A triangle mesh with optional materials, sub-objects and active mask.
 
-    >>> Mesh.box(2.0, 3.0, 4.0, with_top=True).num_triangles
+    >>> Mesh.box(2.0, 3.0, 4.0, with_top=True, device="cpu").num_triangles
     12
     """
 
@@ -34,6 +44,8 @@ class Mesh:
     """If set, each two consecutive triangles form a quadrilateral primitive."""
     mask: torch.Tensor | None = None
     """Optional ``[num_triangles]`` bool active-triangle mask."""
+    _bvh: tuple | None = dataclasses.field(default=None, init=False, repr=False, compare=False)
+    """The cached ``(key, MeshBVH)`` of :attr:`bvh`; a new mesh starts without one."""
 
     def __post_init__(self) -> None:
         if self.assume_quads and self.triangles.shape[0] % 2 != 0:
@@ -68,6 +80,28 @@ class Mesh:
     def triangle_vertices(self) -> torch.Tensor:
         """``[num_triangles, 3, 3]`` gathered per-triangle vertex coordinates."""
         return self.vertices[self.triangles]
+
+    @property
+    def bvh(self):
+        """The kernels' acceleration structure (:class:`~differt_tpu_torch.ops._bvh.MeshBVH`).
+
+        Built at first use, under ``torch.no_grad()``, on the mesh's device,
+        and kept: it is keyed on the storage and version counter of
+        :attr:`vertices`, :attr:`triangles` and :attr:`mask`, so an in-place
+        edit of one of them rebuilds it. An edit that returns a new mesh
+        (:meth:`translate`, ``+``, :meth:`set_mask`, ...) starts afresh.
+        """
+        key = tuple(
+            None if x is None else (x.data_ptr(), x._version, tuple(x.shape))
+            for x in (self.vertices, self.triangles, self.mask)
+        )
+        if self._bvh is None or self._bvh[0] != key:
+            from ..ops._bvh import build_bvh
+
+            with torch.no_grad():
+                bvh = build_bvh(self.triangle_vertices, self.mask)
+            object.__setattr__(self, "_bvh", (key, bvh))
+        return self._bvh[1]
 
     @property
     def normals(self) -> torch.Tensor:
@@ -113,7 +147,8 @@ class Mesh:
     # -- Constructors -----------------------------------------------------
 
     @classmethod
-    def empty(cls, *, device: torch.device | str = "cpu") -> "Mesh":
+    def empty(cls, *, device: torch.device | str | None = None) -> "Mesh":
+        device = _on_card(device)
         return cls(
             vertices=torch.empty((0, 3), device=device),
             triangles=torch.empty((0, 3), dtype=torch.int64, device=device),
@@ -126,9 +161,10 @@ class Mesh:
         *,
         normal,
         side_length: float = 1.0,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
     ) -> "Mesh":
         """Square plane (two triangles) centered at ``vertex_a`` with unit ``normal``."""
+        device = _on_card(device)
         vertex_a = torch.as_tensor(vertex_a, dtype=torch.float32, device=device)
         normal = torch.as_tensor(normal, dtype=torch.float32, device=device)
         u, v = orthogonal_basis(normal)
@@ -146,13 +182,14 @@ class Mesh:
         *,
         with_top: bool = False,
         with_bottom: bool = True,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
     ) -> "Mesh":
         """Axis-aligned box, optionally open at top/bottom (quad-compatible).
 
         Same vertex and triangle order as the JAX package, so object
         bounds and normals match.
         """
+        device = _on_card(device)
         dx = torch.tensor([length * 0.5, 0.0, 0.0], device=device)
         dy = torch.tensor([0.0, width * 0.5, 0.0], device=device)
         dz = torch.tensor([0.0, 0.0, height * 0.5], device=device)
@@ -292,7 +329,7 @@ class Mesh:
         version (see :mod:`..ops._dispatch`).
 
         >>> import torch
-        >>> box = Mesh.box(with_top=True)
+        >>> box = Mesh.box(with_top=True, device="cpu")
         >>> index, t = box.first_triangle_hit_by_ray(torch.zeros(3), torch.tensor([1.0, 0, 0]))
         >>> float(t)
         0.5

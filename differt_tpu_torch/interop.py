@@ -23,8 +23,10 @@ def _tensor(value, dtype: torch.dtype, device) -> torch.Tensor | None:
     return torch.as_tensor(np.array(value), device=device).to(dtype)
 
 
-def mesh_from_numpy(fields: dict, *, device: torch.device | str = "cpu") -> Mesh:
-    """Build a :class:`Mesh` on ``device`` from a dict of numpy arrays."""
+def mesh_from_numpy(fields: dict, *, device: torch.device | str | None = None) -> Mesh:
+    """Build a :class:`Mesh` on ``device`` (the card when None) from a dict of numpy arrays."""
+    if device is None:
+        device = torch.device("cuda")
     return Mesh(
         vertices=_tensor(fields["vertices"], torch.float32, device),
         triangles=_tensor(fields["triangles"], torch.int64, device),
@@ -36,8 +38,10 @@ def mesh_from_numpy(fields: dict, *, device: torch.device | str = "cpu") -> Mesh
     )
 
 
-def scene_from_numpy(fields: dict, *, device: torch.device | str = "cpu") -> Scene:
-    """Build a :class:`Scene` on ``device`` from a dict of numpy arrays."""
+def scene_from_numpy(fields: dict, *, device: torch.device | str | None = None) -> Scene:
+    """Build a :class:`Scene` on ``device`` (the card when None) from a dict of numpy arrays."""
+    if device is None:
+        device = torch.device("cuda")
     empty = np.empty((0, 3), dtype=np.float32)
     transmitters = fields.get("transmitters")
     receivers = fields.get("receivers")

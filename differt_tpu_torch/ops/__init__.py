@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels, their plain PyTorch versions, and dispatch.
 
-- :mod:`._rt`: any-hit (``csrc/anyhit.cu``) and the shared mesh preparation.
+- :mod:`._rt`: any-hit (``csrc/anyhit.cu``) and the helpers the BVH is built from.
+- :mod:`._bvh`: the kernels' BVH, built once per mesh (``Mesh.bvh``).
 - :mod:`._closest`: closest-hit (``csrc/closest.cu``).
 - :mod:`._trace`: the fused specular trace (``csrc/trace.cu``).
 - :mod:`._build`: builds the CUDA sources with ``nvcc`` at first use.

@@ -1,26 +1,30 @@
-"""Closest-hit ray casting: the Hopper kernel's wrapper and its plain version.
+"""Closest-hit ray casting: the Hopper kernel's wrapper, its plain version and its tie rule.
 
 Replaces the TPU kernel ``differt_tpu/ops/_pallas_rt.py::_closest_kernel``
 (launched by ``_run_closest``, entry ``pallas_first_triangle_hit_by_ray``) with
 the hand-written CUDA kernel in ``differt_tpu_torch/csrc/closest.cu``.
 
-The kernel walks the Morton-sorted mesh of :func:`._rt.sorted_mesh`, one
-thread per ray, and reports positions in that order; the wrapper maps them
-back through the permutation. What bounds it on the H100 is the
-Möller–Trumbore work that culling against the best ``t`` cannot skip and the
-divergence of incoherent rays within a warp (see the kernel's header note).
+The kernel walks the mesh's BVH (:mod:`._bvh`), one thread per ray, and
+reports Morton positions; the wrapper maps them back through the BVH's
+permutation. What bounds it on the H100 is the Möller–Trumbore work that
+culling against the best ``t`` cannot skip and the divergence of
+incoherent rays within a warp (see the kernel's header note).
 
-Because the mesh is sorted, an exact tie in ``t`` (a shared edge, coincident
-faces) can resolve to another triangle than the plain scan's, with the same
-``t``: both are valid answers of the contract.
+On an exact tie in ``t`` (a shared edge, coincident faces) the kernel
+keeps the rule of the JAX kernel, which walked 64-triangle chunks of the
+Morton order: the later chunk wins, and within a chunk the earlier
+triangle. As a key on the Morton position ``p``: the larger ``p // 64``
+wins, then the smaller ``p`` (:func:`tie_key_winner`). The plain scan
+breaks ties in index order instead, with the same ``t``: both are valid
+answers of the contract.
 """
 
 import torch
 
 from ..rt._scan import first_triangle_hit_by_ray
-from ..rt._triangle import F32_EPS
+from ..rt._triangle import F32_EPS, ray_intersect_triangle
 from ._build import check_launch, load_kernels
-from ._rt import _MAX_PAIRS, _check, sorted_mesh
+from ._rt import _MAX_PAIRS, T_SUB, _check, checked_bvh
 
 LAUNCHES = 0
 """Launches of the CUDA closest-hit kernel in this process."""
@@ -65,20 +69,59 @@ def first_triangle_hit_by_ray_reference(
     return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
 
 
-def first_triangle_hit_by_ray_cuda(
+def tie_key_winner(
     ray_origins: torch.Tensor,
     ray_directions: torch.Tensor,
     triangle_vertices: torch.Tensor,
+    active_triangles: torch.Tensor | None,
+    best_t: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    epsilon: float | None = None,
+) -> torch.Tensor:
+    """The triangle the kernel's tie key picks for each ray, in plain PyTorch.
+
+    ``best_t [R]`` is the plain version's distance and ``positions [T]``
+    each triangle's Morton position (``MeshBVH.positions``). Among the
+    active triangles hit at exactly ``best_t``, the one with the largest
+    ``p // 64`` wins, then the smallest ``p``; ``-1`` where nothing is hit.
+    """
+    num_tris = triangle_vertices.shape[0]
+    score = (positions // T_SUB) * T_SUB + (T_SUB - 1 - positions % T_SUB)
+    out = torch.full(best_t.shape, -1, dtype=torch.int64, device=best_t.device)
+    block = max(_MAX_PAIRS // max(num_tris, 1), 1)
+    for lo in range(0, best_t.shape[0], block):
+        t, hit = ray_intersect_triangle(
+            ray_origins[lo : lo + block, None],
+            ray_directions[lo : lo + block, None],
+            triangle_vertices[None],
+            epsilon=epsilon,
+        )
+        tied = hit & (t == best_t[lo : lo + block, None])
+        if active_triangles is not None:
+            tied = tied & active_triangles
+        best, arg = torch.where(tied, score, -1).max(dim=-1)
+        out[lo : lo + block] = torch.where(best >= 0, arg, -1)
+    return out
+
+
+def first_triangle_hit_by_ray_cuda(
+    ray_origins: torch.Tensor,
+    ray_directions: torch.Tensor,
+    triangle_vertices: torch.Tensor | None,
     active_triangles: torch.Tensor | None = None,
     *,
     epsilon: float | None = None,
+    bvh=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Closest hit on the CUDA kernel; see :func:`first_triangle_hit_by_ray_reference`.
 
     Inputs are float32 ``[R, 3]`` rays, ``[T, 3, 3]`` triangles and an
-    optional ``[T]`` bool mask, contiguous and on one device. CPU tensors
-    take the plain version; CUDA tensors launch the kernel (or raise);
-    other devices raise.
+    optional ``[T]`` bool mask, contiguous and on one device. ``bvh`` is
+    the triangles' :class:`._bvh.MeshBVH` (``Mesh.bvh``); it is built here
+    when not given, and with it the triangles may be None on CUDA. CPU
+    tensors take the plain version; CUDA tensors launch the kernel (or
+    raise); other devices raise.
     """
     device = ray_origins.device
     if device.type == "cpu":
@@ -89,40 +132,37 @@ def first_triangle_hit_by_ray_cuda(
         msg = f"The closest-hit kernel runs on CUDA tensors, not on {device}."
         raise ValueError(msg)
     num_rays = ray_origins.shape[0]
-    num_tris = triangle_vertices.shape[0]
     _check("ray_origins", ray_origins, torch.float32, (num_rays, 3), device)
     _check("ray_directions", ray_directions, torch.float32, (num_rays, 3), device)
-    _check("triangle_vertices", triangle_vertices, torch.float32, (num_tris, 3, 3), device)
-    if active_triangles is not None:
-        _check("active_triangles", active_triangles, torch.bool, (num_tris,), device)
+    bvh = checked_bvh(triangle_vertices, active_triangles, bvh, device)
     if epsilon is None:
         epsilon = 10.0 * F32_EPS
 
     idx = torch.full((num_rays,), -1, dtype=torch.int64, device=device)
     t = torch.full((num_rays,), torch.inf, dtype=torch.float32, device=device)
-    if num_rays == 0 or num_tris == 0:
+    if num_rays == 0 or bvh.num_triangles == 0:
         return idx, t
-    mesh, chunk_box, tile_box, num_chunks, perm = sorted_mesh(
-        triangle_vertices, active_triangles
-    )
-    sorted_idx = torch.empty(num_rays, dtype=torch.int32, device=device)
-    lib = load_kernels()
+    pos = torch.empty(num_rays, dtype=torch.int32, device=device)
+    launch_closest(ray_origins, ray_directions, bvh, epsilon, pos, t)
+    return torch.where(pos >= 0, bvh.perm[pos.clamp(min=0).long()], idx), t
+
+
+def launch_closest(ray_origins, ray_directions, bvh, epsilon: float, pos_out, t_out) -> None:
+    """Launch ``csrc/closest.cu`` on checked inputs (counted in :data:`LAUNCHES`)."""
     global LAUNCHES
-    status = lib.differt_closest(
+    status = load_kernels().differt_closest(
         ray_origins.data_ptr(),
         ray_directions.data_ptr(),
-        mesh.data_ptr(),
-        chunk_box.data_ptr(),
-        tile_box.data_ptr(),
-        num_rays,
-        num_chunks,
+        bvh.nodes.data_ptr(),
+        bvh.triangles.data_ptr(),
+        bvh.num_nodes,
+        bvh.large_begin,
+        bvh.num_large,
+        ray_origins.shape[0],
         epsilon,
-        sorted_idx.data_ptr(),
-        t.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream,
+        pos_out.data_ptr(),
+        t_out.data_ptr(),
+        torch.cuda.current_stream(pos_out.device).cuda_stream,
     )
     LAUNCHES += 1
     check_launch("differt_closest", status)
-    hit = sorted_idx >= 0
-    idx = torch.where(hit, perm[sorted_idx.clamp(min=0).long()], idx)
-    return idx, t

@@ -99,19 +99,14 @@ def dispatch_ray_intersect_any_triangle(
     if active_rays is not None:
         hit_threshold = torch.where(active_rays, hit_threshold, -1.0)
 
-    anyhit = (
-        ray_intersect_any_triangle_cuda
-        if get_backend(ray_origins.device) == "cuda"
-        else ray_intersect_any_triangle_reference
-    )
-    out = anyhit(
-        ray_origins.reshape(-1, 3).contiguous(),
-        ray_directions.reshape(-1, 3).contiguous(),
-        mesh.triangle_vertices.contiguous(),
-        mesh.mask,
-        hit_threshold=hit_threshold.reshape(-1).contiguous(),
-        epsilon=epsilon,
-    )
+    kw = {"hit_threshold": hit_threshold.reshape(-1).contiguous(), "epsilon": epsilon}
+    rays = (ray_origins.reshape(-1, 3).contiguous(), ray_directions.reshape(-1, 3).contiguous())
+    if get_backend(ray_origins.device) == "cuda":
+        out = ray_intersect_any_triangle_cuda(*rays, None, None, bvh=mesh.bvh, **kw)
+    else:
+        out = ray_intersect_any_triangle_reference(
+            *rays, mesh.triangle_vertices.contiguous(), mesh.mask, **kw
+        )
     return out.reshape(batch)
 
 
@@ -137,19 +132,20 @@ def _recomputed_distance(
 class _FirstHit(torch.autograd.Function):
     """Closest hit whose distance is differentiable (``_first_hit_helper`` of the reference).
 
-    The forward runs the kernel or its plain version; the backward
-    recomputes ``t`` from the frozen hit index, so that gradients reach the
-    vertices and the rays, and zeroes non-finite incoming gradients (misses).
+    The forward runs the kernel on the mesh's BVH (``bvh``) or, when that
+    is None, the plain version; the backward recomputes ``t`` from the
+    frozen hit index, so that gradients reach the vertices and the rays,
+    and zeroes non-finite incoming gradients (misses).
     """
 
     @staticmethod
-    def forward(ctx, vertices, triangles, active, ray_origins, ray_directions, use_kernel):
-        closest = (
-            first_triangle_hit_by_ray_cuda if use_kernel else first_triangle_hit_by_ray_reference
-        )
-        idx, t = closest(
-            ray_origins, ray_directions, vertices[triangles].contiguous(), active
-        )
+    def forward(ctx, vertices, triangles, active, ray_origins, ray_directions, bvh):
+        if bvh is None:
+            idx, t = first_triangle_hit_by_ray_reference(
+                ray_origins, ray_directions, vertices[triangles].contiguous(), active
+            )
+        else:
+            idx, t = first_triangle_hit_by_ray_cuda(ray_origins, ray_directions, None, bvh=bvh)
         ctx.save_for_backward(vertices, triangles, ray_origins, ray_directions, idx)
         ctx.mark_non_differentiable(idx)
         return idx, t
@@ -190,6 +186,6 @@ def dispatch_first_triangle_hit_by_ray(
         mesh.mask,
         ray_origins.reshape(-1, 3).contiguous(),
         ray_directions.reshape(-1, 3).contiguous(),
-        get_backend(device) == "cuda",
+        mesh.bvh if get_backend(device) == "cuda" else None,
     )
     return idx.reshape(batch), t.reshape(batch)

@@ -1,4 +1,4 @@
-"""Any-hit ray casting: the Hopper kernel's wrapper, its plain version and input prep.
+"""Any-hit ray casting: the Hopper kernel's wrapper, its plain version and the BVH's helpers.
 
 Replaces the TPU kernel ``differt_tpu/ops/_pallas_rt.py::_anyhit_kernel``
 (driver ``_run_anyhit``, entry ``pallas_ray_intersect_any_triangle``) with
@@ -7,12 +7,13 @@ the hand-written CUDA kernel in ``differt_tpu_torch/csrc/anyhit.cu``.
 What bounds it on the H100 is the Möller–Trumbore work that culling cannot
 skip and the divergence of rays within a warp; the mesh (1 MB at 20,738
 triangles) sits in L2, so memory traffic is not the limit. The kernel runs
-one thread per ray over Morton-sorted 64-triangle chunks behind two levels
-of AABB tests, exiting at the first hit (see the kernel's header note).
+one thread per ray down the mesh's BVH (:mod:`._bvh`), exiting at the
+first hit (see the kernel's header note).
 
-The input preparation (Morton sort, chunk and tile boxes) is plain PyTorch
-here, shared with the fused trace kernel, and keeps the reference's
-semantics so that its results can be compared with the JAX package's.
+The helpers the BVH is built from (Morton sort, boxes with a margin, the
+fold of boxes, the slab test) are plain PyTorch here and keep the
+reference's semantics, so that they can be compared with the JAX
+package's.
 """
 
 import torch
@@ -22,9 +23,7 @@ from ..rt._triangle import F32_EPS
 from ._build import check_launch, load_kernels
 
 T_SUB = 64
-"""Triangles per culling chunk (``kChunk`` in ``csrc/mt.cuh``)."""
-CHUNKS_PER_TILE = 8
-"""Chunks per first-level culling tile (``kChunksPerTile`` in ``csrc/mt.cuh``)."""
+"""Triangles per chunk of the JAX kernels' culling (and of the closest-hit tie key)."""
 _SLAB_TINY = 1e-30
 _MAX_PAIRS = 1 << 24
 """Ray-triangle pairs per tile of the plain any-hit version (bounds its memory)."""
@@ -72,10 +71,10 @@ def _morton_perm(triangle_vertices: torch.Tensor) -> torch.Tensor:
     return morton_perm_points(triangle_vertices.mean(dim=1))
 
 
-def _chunk_aabbs(tris: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
-    """Per-``T_SUB``-chunk AABBs of the padded ``[9, T]`` v0/e1/e2 layout.
+def _chunk_aabbs(tris: torch.Tensor, active: torch.Tensor, chunk: int = T_SUB) -> torch.Tensor:
+    """Per-``chunk`` AABBs of the padded ``[9, T]`` v0/e1/e2 layout (the BVH's leaf boxes).
 
-    ``active`` is the padded ``[1, T]`` int mask. Returns ``[8, T // T_SUB]``:
+    ``active`` is the padded ``[1, T]`` int mask. Returns ``[8, T // chunk]``:
     rows 0-2 min xyz, rows 3-5 max xyz (with a relative margin, so that
     rounding never culls a grazing hit), rows 6-7 zero. Chunks with no
     active triangle get an inverted box.
@@ -87,8 +86,8 @@ def _chunk_aabbs(tris: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
     mn = torch.minimum(torch.minimum(v0, v1), v2)
     mx = torch.maximum(torch.maximum(v0, v1), v2)
     inf = torch.tensor(torch.inf, dtype=mn.dtype, device=mn.device)
-    mn = torch.where(ok, mn, inf).reshape(3, -1, T_SUB).amin(dim=-1)
-    mx = torch.where(ok, mx, -inf).reshape(3, -1, T_SUB).amax(dim=-1)
+    mn = torch.where(ok, mn, inf).reshape(3, -1, chunk).amin(dim=-1)
+    mx = torch.where(ok, mx, -inf).reshape(3, -1, chunk).amax(dim=-1)
     extent = torch.where(torch.isfinite(mx), mx, -inf).max() - torch.where(
         torch.isfinite(mn), mn, inf
     ).min()
@@ -100,7 +99,8 @@ def _chunk_aabbs(tris: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
 def _tile_aabbs(chunk_aabb: torch.Tensor, chunks_per_tile: int) -> torch.Tensor:
     """Fold ``[8, num_chunks]`` chunk AABBs up to ``[8, num_tiles]`` tile AABBs.
 
-    A last, partial tile folds only the chunks it has.
+    A last, partial tile folds only the chunks it has. The BVH folds its
+    levels with it, two children to a parent.
     """
     num_chunks = chunk_aabb.shape[1]
     pad = -num_chunks % chunks_per_tile
@@ -133,60 +133,6 @@ def _slab_overlap(o, d, box, t_hi) -> torch.Tensor:
         tnear = torch.maximum(tnear, torch.minimum(t1, t2))
         tfar = torch.minimum(tfar, torch.maximum(t1, t2))
     return tnear <= tfar
-
-
-def sorted_mesh(
-    triangle_vertices: torch.Tensor, active_triangles: torch.Tensor | None
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int, torch.Tensor]:
-    """:func:`prepare_mesh` and the Morton permutation it sorted the triangles by.
-
-    The permutation ``perm [num_triangles]`` maps a position in the sorted
-    mesh to the triangle's index (the closest-hit wrapper maps its results
-    back through it).
-    """
-    num_tris = triangle_vertices.shape[0]
-    device = triangle_vertices.device
-    padded = -(-max(num_tris, 1) // T_SUB) * T_SUB
-    perm = _morton_perm(triangle_vertices)
-    tv = triangle_vertices[perm]
-    v0 = tv[:, 0, :]
-    soa = torch.cat((v0, tv[:, 1, :] - v0, tv[:, 2, :] - v0), dim=-1).T
-    soa = torch.nn.functional.pad(soa, (0, padded - num_tris))
-    if active_triangles is None:
-        active = torch.ones(num_tris, dtype=torch.int32, device=device)
-    else:
-        active = active_triangles[perm].to(torch.int32)
-    active = torch.nn.functional.pad(active, (0, padded - num_tris))[None]
-
-    chunk = _chunk_aabbs(soa, active)
-    any_active = (active[0].reshape(-1, T_SUB) > 0).any(dim=-1)
-    tile = _tile_aabbs(chunk, CHUNKS_PER_TILE)
-    tile_active = torch.nn.functional.pad(
-        any_active, (0, -any_active.shape[0] % CHUNKS_PER_TILE)
-    ).reshape(-1, CHUNKS_PER_TILE).any(dim=-1)
-
-    def boxes(aabb, alive):
-        # [8, n] rows (min xyz, max xyz, 0, 0) -> [n, 8] (min xyz, flag, max xyz, 0).
-        return torch.stack(
-            (*aabb[0:3], alive.to(torch.float32), *aabb[3:6], aabb[6]), dim=-1
-        ).contiguous()
-
-    mesh = torch.cat(
-        (soa.T, active[0, :, None].to(torch.float32), torch.zeros_like(soa[:2].T)),
-        dim=-1,
-    ).contiguous()
-    return mesh, boxes(chunk, any_active), boxes(tile, tile_active), padded // T_SUB, perm
-
-
-def prepare_mesh(
-    triangle_vertices: torch.Tensor, active_triangles: torch.Tensor | None
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
-    """Morton-sorted mesh and culling boxes in the kernels' layout (``csrc/mt.cuh``).
-
-    Returns ``(mesh [num_chunks * 64, 12], chunk_box [num_chunks, 8],
-    tile_box [num_tiles, 8], num_chunks)``, all float32 and contiguous.
-    """
-    return sorted_mesh(triangle_vertices, active_triangles)[:4]
 
 
 def ray_intersect_any_triangle_reference(
@@ -242,18 +188,21 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple, device)
 def ray_intersect_any_triangle_cuda(
     ray_origins: torch.Tensor,
     ray_directions: torch.Tensor,
-    triangle_vertices: torch.Tensor,
+    triangle_vertices: torch.Tensor | None,
     active_triangles: torch.Tensor | None = None,
     *,
     hit_threshold: torch.Tensor,
     epsilon: float | None = None,
+    bvh=None,
 ) -> torch.Tensor:
     """Any-hit test on the CUDA kernel; see :func:`ray_intersect_any_triangle_reference`.
 
     Inputs are float32 ``[R, 3]`` rays, ``[T, 3, 3]`` triangles, an optional
     ``[T]`` bool mask and ``[R]`` thresholds, contiguous and on one device.
-    CPU tensors take the plain version; CUDA tensors launch the kernel (or
-    raise); other devices raise.
+    ``bvh`` is the triangles' :class:`._bvh.MeshBVH` (``Mesh.bvh``); it is
+    built here when not given, and with it the triangles may be None on
+    CUDA. CPU tensors take the plain version; CUDA tensors launch the
+    kernel (or raise); other devices raise.
     """
     device = ray_origins.device
     if device.type == "cpu":
@@ -269,35 +218,53 @@ def ray_intersect_any_triangle_cuda(
         msg = f"The any-hit kernel runs on CUDA tensors, not on {device}."
         raise ValueError(msg)
     num_rays = ray_origins.shape[0]
-    num_tris = triangle_vertices.shape[0]
     _check("ray_origins", ray_origins, torch.float32, (num_rays, 3), device)
     _check("ray_directions", ray_directions, torch.float32, (num_rays, 3), device)
-    _check("triangle_vertices", triangle_vertices, torch.float32, (num_tris, 3, 3), device)
     _check("hit_threshold", hit_threshold, torch.float32, (num_rays,), device)
-    if active_triangles is not None:
-        _check("active_triangles", active_triangles, torch.bool, (num_tris,), device)
+    bvh = checked_bvh(triangle_vertices, active_triangles, bvh, device)
     if epsilon is None:
         epsilon = 10.0 * F32_EPS
 
     out = torch.empty(num_rays, dtype=torch.bool, device=device)
-    if num_rays == 0:
-        return out
-    mesh, chunk_box, tile_box, num_chunks = prepare_mesh(triangle_vertices, active_triangles)
-    lib = load_kernels()
+    if num_rays:
+        launch_anyhit(ray_origins, ray_directions, hit_threshold, bvh, epsilon, out)
+    return out
+
+
+def checked_bvh(triangle_vertices, active_triangles, bvh, device):
+    """The wrappers' shared check of the mesh inputs: the given BVH, or one built here."""
+    from ._bvh import build_bvh, check_bvh  # _bvh imports this module
+
+    if triangle_vertices is not None:
+        num_tris = triangle_vertices.shape[0]
+        _check("triangle_vertices", triangle_vertices, torch.float32, (num_tris, 3, 3), device)
+        if active_triangles is not None:
+            _check("active_triangles", active_triangles, torch.bool, (num_tris,), device)
+        if bvh is None:
+            bvh = build_bvh(triangle_vertices, active_triangles)
+    elif bvh is None:
+        msg = "Give the triangles or their BVH."
+        raise ValueError(msg)
+    check_bvh(bvh, bvh.num_triangles if triangle_vertices is None else num_tris, device)
+    return bvh
+
+
+def launch_anyhit(ray_origins, ray_directions, hit_threshold, bvh, epsilon: float, out) -> None:
+    """Launch ``csrc/anyhit.cu`` on checked inputs (counted in :data:`LAUNCHES`)."""
     global LAUNCHES
-    status = lib.differt_anyhit(
+    status = load_kernels().differt_anyhit(
         ray_origins.data_ptr(),
         ray_directions.data_ptr(),
         hit_threshold.data_ptr(),
-        mesh.data_ptr(),
-        chunk_box.data_ptr(),
-        tile_box.data_ptr(),
-        num_rays,
-        num_chunks,
+        bvh.nodes.data_ptr(),
+        bvh.triangles.data_ptr(),
+        bvh.num_nodes,
+        bvh.large_begin,
+        bvh.num_large,
+        ray_origins.shape[0],
         epsilon,
         out.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream,
+        torch.cuda.current_stream(out.device).cuda_stream,
     )
     LAUNCHES += 1
     check_launch("differt_anyhit", status)
-    return out

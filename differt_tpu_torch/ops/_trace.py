@@ -4,13 +4,13 @@ Replaces the TPU kernel ``differt_tpu/ops/_pallas_trace.py::_trace_kernel``
 (driver ``_pallas_trace_specular_impl``, entry ``pallas_trace_specular``)
 with the hand-written CUDA kernel in ``differt_tpu_torch/csrc/trace.cu``.
 
-What bounds it on the H100: nearly every candidate path fails the cheap
-geometric checks at city scale, so the cost is the per-path geometry (tens
-of flops in registers), the store of ``(k+2)*12`` bytes of vertices per
-path, and the divergent any-hit walk of the few paths that survive. The
-kernel runs one thread per (TX, candidate, RX) path, neighbouring threads
-on neighbouring receivers of one candidate, and only surviving paths walk
-the Morton-sorted mesh (see the kernel's header note). The VMEM-driven tile
+What bounds it on the H100: its bytes, above all the ``(k+2)*12`` bytes of
+vertices it writes per path; at city scale nearly every path fails the
+cheap checks, so the few that survive walk the mesh's BVH for blockage.
+The kernel tiles (TX, candidates, receivers), computes each candidate's
+TX images once per block, stages the vertices in shared memory for
+16-byte stores, and queues the surviving paths' segments so that whole
+warps walk the BVH (see the kernel's header note). The VMEM-driven tile
 pickers of the TPU kernel (``_pick_tile_t``, ``_pick_c_tile``) have no
 counterpart here.
 
@@ -24,7 +24,7 @@ from ..rt._image_method import sign
 from ..rt._triangle import ray_intersect_triangle
 from ..geometry._vectors import _dot
 from ._build import check_launch, load_kernels
-from ._rt import _check, prepare_mesh, ray_intersect_any_triangle_reference
+from ._rt import _check, checked_bvh, ray_intersect_any_triangle_reference
 
 MAX_ORDER = 4
 """Highest order the CUDA kernel is compiled for (``csrc/trace.cu``)."""
@@ -150,19 +150,22 @@ def trace_specular_cuda(
     mirror_vertices: torch.Tensor,
     mirror_normals: torch.Tensor,
     candidate_triangles: torch.Tensor,
-    triangle_vertices: torch.Tensor,
+    triangle_vertices: torch.Tensor | None,
     active_triangles: torch.Tensor | None,
     *,
     order: int,
     epsilon: float,
     hit_tol: float,
     min_len: float,
+    bvh=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused trace on the CUDA kernel; see :func:`trace_specular_reference`.
 
-    Inputs are float32 (the mask bool), contiguous and on one device. CPU
-    tensors take the plain version; CUDA tensors launch the kernel (or
-    raise); other devices raise.
+    Inputs are float32 (the mask bool), contiguous and on one device.
+    ``bvh`` is the mesh's :class:`._bvh.MeshBVH` (``Mesh.bvh``); it is
+    built here when not given, and with it the mesh's triangles may be
+    None on CUDA. CPU tensors take the plain version; CUDA tensors launch
+    the kernel (or raise); other devices raise.
     """
     args = (
         tx_vertices,
@@ -192,7 +195,6 @@ def trace_specular_cuda(
         raise ValueError(msg)
     num_tx, num_rx = tx_vertices.shape[0], rx_vertices.shape[0]
     num_cand = mirror_vertices.shape[0]
-    num_tris = triangle_vertices.shape[0]
     tpm = candidate_triangles.shape[1] // order
     if tpm not in (1, 2):
         msg = f"Expected 1 or 2 candidate triangles per mirror, got {tpm}."
@@ -209,9 +211,7 @@ def trace_specular_cuda(
         (num_cand, tpm * order, 3, 3),
         device,
     )
-    _check("triangle_vertices", triangle_vertices, f32, (num_tris, 3, 3), device)
-    if active_triangles is not None:
-        _check("active_triangles", active_triangles, torch.bool, (num_tris,), device)
+    bvh = checked_bvh(triangle_vertices, active_triangles, bvh, device)
 
     vertices = torch.empty((num_tx, num_cand, num_rx, order + 2, 3), dtype=f32, device=device)
     mask = torch.empty((num_tx, num_cand, num_rx), dtype=torch.bool, device=device)
@@ -223,31 +223,45 @@ def trace_specular_cuda(
         (v0, candidate_triangles[..., 1, :] - v0, candidate_triangles[..., 2, :] - v0),
         dim=-1,
     ).contiguous()
-    mesh, chunk_box, tile_box, num_chunks = prepare_mesh(triangle_vertices, active_triangles)
-    lib = load_kernels()
+    launch_trace(
+        tx_vertices, rx_vertices, mirrors, cand_tris, bvh, order, tpm,
+        epsilon, hit_tol, min_len, vertices, mask,
+    )
+    return vertices, mask
+
+
+def launch_trace(
+    tx_vertices, rx_vertices, mirrors, cand_tris, bvh, order: int, tpm: int,
+    epsilon: float, hit_tol: float, min_len: float, vertices, mask,
+) -> None:
+    """Launch ``csrc/trace.cu`` on checked, prepared inputs (counted in :data:`LAUNCHES`).
+
+    ``mirrors [C, k, 6]`` holds each mirror's vertex and normal,
+    ``cand_tris [C, tpm * k, 9]`` each candidate triangle's v0, e1, e2.
+    """
     global LAUNCHES
-    status = lib.differt_trace(
+    status = load_kernels().differt_trace(
         tx_vertices.data_ptr(),
         rx_vertices.data_ptr(),
         mirrors.data_ptr(),
         cand_tris.data_ptr(),
-        mesh.data_ptr(),
-        chunk_box.data_ptr(),
-        tile_box.data_ptr(),
+        bvh.nodes.data_ptr(),
+        bvh.triangles.data_ptr(),
         order,
         tpm,
-        num_tx,
-        num_cand,
-        num_rx,
-        num_chunks,
+        tx_vertices.shape[0],
+        mirrors.shape[0],
+        rx_vertices.shape[0],
+        bvh.num_nodes,
+        bvh.large_begin,
+        bvh.num_large,
         epsilon,
         hit_tol,
         1.0 - 2.0 * hit_tol,
         min_len,
         vertices.data_ptr(),
         mask.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream,
+        torch.cuda.current_stream(mask.device).cuda_stream,
     )
     LAUNCHES += 1
     check_launch("differt_trace", status)
-    return vertices, mask

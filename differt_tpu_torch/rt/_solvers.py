@@ -97,18 +97,22 @@ def trace_path_candidates(
             raise ValueError(msg)
         from ..ops._trace import trace_specular_cuda
 
+        # On the card the kernel reads the mesh's cached BVH; on the CPU the
+        # plain version reads the triangles.
+        on_card = tx_vertices.device.type == "cuda"
         vertices, mask = trace_specular_cuda(
             tx_vertices.contiguous(),
             rx_vertices.contiguous(),
             mirror_vertices,
             mirror_normals,
             triangle_vertices,
-            mesh.triangle_vertices.contiguous(),
+            None if on_card else mesh.triangle_vertices.contiguous(),
             mesh.mask,
             order=order,
             epsilon=10.0 * F32_EPS if epsilon is None else float(epsilon),
             hit_tol=100.0 * F32_EPS if hit_tol is None else float(hit_tol),
             min_len=float(min_len),
+            bvh=mesh.bvh if on_card else None,
         )
         # [tx, cand, rx, ...] -> [tx, rx, cand, ...]
         full_paths = vertices.transpose(1, 2)

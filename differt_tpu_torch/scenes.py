@@ -1,7 +1,9 @@
 """Procedural scenes (PyTorch port of ``differt_tpu.scenes``).
 
 A two-building street canyon and a Manhattan grid of buildings; both carry
-the single material ``"Concrete"``.
+the single material ``"Concrete"``. They are built on the card
+(``device=None`` means ``torch.device("cuda")``) unless asked for another
+device.
 """
 
 import numpy as np
@@ -17,13 +19,14 @@ def street_canyon_scene(
     building_depth: float = 15.0,
     length: float = 100.0,
     with_ground: bool = True,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> Scene:
     """A street canyon: two building rows facing each other, plus the ground.
 
-    >>> street_canyon_scene().mesh.num_triangles
+    >>> street_canyon_scene(device="cpu").mesh.num_triangles
     26
     """
+    device = torch.device("cuda") if device is None else device
     half = street_width / 2.0
     box = lambda: Mesh.box(  # noqa: E731
         length, building_depth, building_height, with_top=True, device=device
@@ -50,7 +53,7 @@ def urban_scene(
     subdivisions: int = 3,
     with_ground: bool = True,
     seed: int = 0,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> Scene:
     """A Manhattan grid of buildings with random heights.
 
@@ -61,9 +64,10 @@ def urban_scene(
     from ``jax.random``: the two cities have the same layout and triangle
     count but not the same skyline.
 
-    >>> urban_scene(2, 2).mesh.num_triangles
+    >>> urban_scene(2, 2, device="cpu").mesh.num_triangles
     146
     """
+    device = torch.device("cuda") if device is None else device
     heights = np.random.default_rng(seed).uniform(
         min_height, max_height, (num_blocks_x, num_blocks_y)
     )
@@ -71,7 +75,8 @@ def urban_scene(
     extent_x = num_blocks_x * block_size
     extent_y = num_blocks_y * block_size
 
-    template = Mesh.box(1.0, 1.0, 1.0, with_top=True)
+    # The template box and the ground feed the numpy step: built on the CPU.
+    template = Mesh.box(1.0, 1.0, 1.0, with_top=True, device="cpu")
     tmpl_v = template.vertices.numpy()
     tmpl_t = template.triangles.numpy()
     verts_list, tris_list, bounds = [], [], []
@@ -96,7 +101,8 @@ def urban_scene(
 
     if with_ground:
         ground = Mesh.plane(
-            [0.0, 0.0, 0.0], normal=[0.0, 0.0, 1.0], side_length=2.0 * max(extent_x, extent_y)
+            [0.0, 0.0, 0.0], normal=[0.0, 0.0, 1.0], side_length=2.0 * max(extent_x, extent_y),
+            device="cpu",
         )
         verts_list.append(ground.vertices.numpy())
         tris_list.append(ground.triangles.numpy() + v_offset)

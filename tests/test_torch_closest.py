@@ -4,7 +4,8 @@
   equal, ``t`` within ``1e-6`` (float32 Möller–Trumbore, op for op).
 - The wrapper's CPU path (the kernel's plain version) against the Pallas
   kernel run in interpret mode: ``t`` within ``1e-6``; indices equal except
-  on exact ties, which the sorted kernel may break another way.
+  on exact ties, which the sorted kernel may break another way; and the
+  card kernel's tie key picks the Pallas kernel's index on every ray.
 - The differentiable distance of ``Mesh.first_triangle_hit_by_ray``
   against ``jax.grad``: ``rtol=1e-5`` (``atol=1e-6`` for entries near 0).
 """
@@ -25,6 +26,7 @@ from differt_tpu_torch import ops, rt
 from differt_tpu_torch.geometry import Mesh
 from differt_tpu_torch.interop import mesh_from_numpy
 from differt_tpu_torch.ops import _closest
+from differt_tpu_torch.ops._bvh import build_bvh
 
 from .torch_parity import jax_scene_fields
 
@@ -34,7 +36,7 @@ T_ATOL = 1e-6
 
 
 def _to_torch_mesh(mesh) -> Mesh:
-    return mesh_from_numpy(jax_scene_fields(jax_scenes.Scene(mesh=mesh))["mesh"])
+    return mesh_from_numpy(jax_scene_fields(jax_scenes.Scene(mesh=mesh))["mesh"], device="cpu")
 
 
 def _box_rays():
@@ -126,6 +128,12 @@ def test_wrapper_matches_pallas_interpret(case, masked: bool) -> None:
         )
         assert bool(hit.all())
         np.testing.assert_array_equal(t_of.numpy(), t.numpy()[rays])
+    # The card kernel's tie key (larger Morton chunk, then smaller Morton
+    # position) is the Pallas kernel's rule: its winner is the Pallas index
+    # on every ray.
+    positions = build_bvh(torch_tv, torch_active).positions
+    winner = _closest.tie_key_winner(o, d, torch_tv, torch_active, t, positions)
+    np.testing.assert_array_equal(winner.numpy(), idx_ref)
 
 
 def test_wrapper_on_cpu_equals_reference(case) -> None:
@@ -161,13 +169,13 @@ def test_mesh_method_matches_jax(case) -> None:
 
 
 def test_empty_mesh_misses() -> None:
-    idx, t = Mesh.empty().first_triangle_hit_by_ray(torch.zeros(4, 3), torch.ones(4, 3))
+    idx, t = Mesh.empty(device="cpu").first_triangle_hit_by_ray(torch.zeros(4, 3), torch.ones(4, 3))
     assert idx.tolist() == [-1] * 4 and bool(torch.isinf(t).all())
 
 
 def test_closest_hit_distance_gradient() -> None:
     # Port of tests/test_rays.py::test_closest_hit_distance_gradient.
-    mesh = Mesh.box(with_top=True)
+    mesh = Mesh.box(with_top=True, device="cpu")
     origin = torch.zeros(3, requires_grad=True)
     _, t = mesh.first_triangle_hit_by_ray(origin, torch.tensor([1.0, 0.0, 0.0]))
     (g,) = torch.autograd.grad(t, origin)
@@ -220,7 +228,7 @@ def backend():
 
 
 def test_backend_switch(backend) -> None:
-    mesh = Mesh.box(with_top=True)
+    mesh = Mesh.box(with_top=True, device="cpu")
     o, d = torch.zeros(5, 3), torch.ones(5, 3)
     assert ops.get_backend() == "auto"
     assert ops.get_backend(torch.device("cpu")) == "torch"

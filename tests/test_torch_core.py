@@ -53,7 +53,7 @@ def test_count_path_candidates(num_primitives, order) -> None:
 
 
 def test_street_canyon_builds_the_same_mesh() -> None:
-    ours = scenes.street_canyon_scene().mesh
+    ours = scenes.street_canyon_scene(device="cpu").mesh
     ref = jax_scenes.street_canyon_scene().mesh
     assert ours.num_triangles == ref.num_triangles == 26
     np.testing.assert_array_equal(ours.vertices.numpy(), np.asarray(ref.vertices))
@@ -65,12 +65,12 @@ def test_street_canyon_builds_the_same_mesh() -> None:
 
 
 def test_urban_scene_triangle_count() -> None:
-    ours = scenes.urban_scene(24, 24).mesh
+    ours = scenes.urban_scene(24, 24, device="cpu").mesh
     assert ours.num_triangles == N_CITY
     assert ours.num_triangles == jax_scenes.urban_scene(24, 24).mesh.num_triangles
     # Seeded: the same city every time.
     torch.testing.assert_close(
-        ours.vertices, scenes.urban_scene(24, 24).mesh.vertices, rtol=0, atol=0
+        ours.vertices, scenes.urban_scene(24, 24, device="cpu").mesh.vertices, rtol=0, atol=0
     )
 
 
@@ -93,8 +93,8 @@ def test_mesh_geometry_matches(quads: bool) -> None:
 
 
 def test_append_merges_materials_and_masks() -> None:
-    a = Mesh.box(2.0, 2.0, 2.0).set_materials("Concrete")
-    b = Mesh.plane([0.0, 0.0, 0.0], normal=[0.0, 0.0, 1.0]).set_materials("Glass", "Concrete")
+    a = Mesh.box(2.0, 2.0, 2.0, device="cpu").set_materials("Concrete")
+    b = Mesh.plane([0.0, 0.0, 0.0], normal=[0.0, 0.0, 1.0], device="cpu").set_materials("Glass", "Concrete")
     b = b.set_face_materials(torch.tensor([1, 0])).set_mask(torch.tensor([True, False]))
     merged = a + b
     assert merged.material_names == ("Concrete", "Glass")
@@ -107,7 +107,7 @@ def test_append_merges_materials_and_masks() -> None:
 def test_receivers_grid_matches(m, n) -> None:
     ref = jax_scenes.street_canyon_scene()
     ref = JaxScene(mesh=ref.mesh).with_receivers_grid(m, n, height=1.5)
-    ours = Scene(mesh=scenes.street_canyon_scene().mesh).with_receivers_grid(m, n, height=1.5)
+    ours = Scene(mesh=scenes.street_canyon_scene(device="cpu").mesh).with_receivers_grid(m, n, height=1.5)
     assert tuple(ours.receivers.shape) == ref.receivers.shape
     np.testing.assert_allclose(ours.receivers.numpy(), np.asarray(ref.receivers), atol=1e-5)
 
@@ -122,7 +122,7 @@ def test_interop_round_trip() -> None:
         mesh=ref.mesh.set_mask(jnp.asarray(mask)),
     )
     fields = jax_scene_fields(ref)
-    scene = scene_from_numpy(fields)
+    scene = scene_from_numpy(fields, device="cpu")
     assert scene.mesh.mask.dtype == torch.bool
     assert scene.mesh.triangles.dtype == torch.int64
     back = scene_to_numpy(scene)
@@ -150,6 +150,7 @@ def test_interop_round_trip() -> None:
         "differt_tpu_torch.rt._scan",
         "differt_tpu_torch.rt._mlm",
         "differt_tpu_torch.ops._rt",
+        "differt_tpu_torch.ops._bvh",
         "differt_tpu_torch.ops._dispatch",
         "differt_tpu_torch.coverage",
         "differt_tpu_torch.scenes",

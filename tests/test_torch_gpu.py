@@ -13,7 +13,7 @@ import torch
 
 from differt_tpu_torch import ops, scenes
 from differt_tpu_torch.geometry import Scene, fibonacci_lattice, generate_path_candidates
-from differt_tpu_torch.ops import _closest, _rt, _trace
+from differt_tpu_torch.ops import _bvh, _closest, _rt, _trace
 from differt_tpu_torch.rt import ray_intersect_triangle
 from differt_tpu_torch.rt._solvers import candidate_geometry
 
@@ -22,8 +22,9 @@ from .torch_parity import EPSILON, HIT_TOL, cuda_or_skip, random_segments, trian
 pytestmark = pytest.mark.gpu
 
 
+@pytest.mark.parametrize("leaf_size", [5, 8, 16])
 @pytest.mark.parametrize("masked", [False, True])
-def test_anyhit_kernel_matches_reference(masked: bool) -> None:
+def test_anyhit_kernel_matches_reference(masked: bool, leaf_size: int) -> None:
     device = cuda_or_skip()
     scene = scenes.urban_scene(4, 4, device=device)
     tv = scene.mesh.triangle_vertices.contiguous()
@@ -34,8 +35,10 @@ def test_anyhit_kernel_matches_reference(masked: bool) -> None:
         np.where(active_rays, 1.0 - 2.0 * HIT_TOL, -1.0).astype(np.float32)
     ).to(device)
     args = (torch.from_numpy(start).to(device), torch.from_numpy(direction).to(device), tv, active)
+    # 578 triangles: leaves of 5 and 16 do not divide the tree's 576.
+    bvh = _bvh.build_bvh(tv, active, leaf_size=leaf_size)
     launches = _rt.LAUNCHES
-    got = _rt.ray_intersect_any_triangle_cuda(*args, hit_threshold=thresh)
+    got = _rt.ray_intersect_any_triangle_cuda(*args, hit_threshold=thresh, bvh=bvh)
     torch.cuda.synchronize()
     assert _rt.LAUNCHES == launches + 1
     want = _rt.ray_intersect_any_triangle_reference(*args, hit_threshold=thresh)
@@ -78,10 +81,40 @@ def test_trace_kernel_matches_reference(order: int, quads: bool) -> None:
     # The public entry's [tx, rx..., cand] mask is the kernel's [tx, cand, rx].
     num_tx, num_cand, num_rx = mask.shape
     assert torch.equal(got.mask.reshape(num_tx, num_rx, num_cand).transpose(1, 2), mask)
+    # The same on a BVH with leaves of 5 (the canyon's 24 tree triangles).
+    odd = _bvh.build_bvh(args[5], None, leaf_size=5)
+    verts5, mask5 = _trace.trace_specular_cuda(*args, **kw, bvh=odd)
+    assert torch.equal(mask5, mask)
+    torch.testing.assert_close(verts5, verts, rtol=0, atol=0, equal_nan=True)
 
     leaf = args[0].clone().requires_grad_(True)
     with pytest.raises(NotImplementedError, match="A8"):
         _trace.trace_specular_cuda(leaf, *args[1:], **kw)
+
+
+@pytest.mark.parametrize(("num_tx", "grid"), [(70_000, 0), (1, 1_500)])
+def test_trace_kernel_takes_many_transmitters_or_receivers(num_tx: int, grid: int) -> None:
+    # More TXs than 65,535, or more receiver tiles than 65,535: sizes past the
+    # limits of a launch grid's y and z dimensions. Ground reflections in the
+    # street of the canyon (its last two triangles are the ground).
+    device = cuda_or_skip()
+    mesh = scenes.street_canyon_scene(device=device).mesh
+    gen = torch.Generator().manual_seed(31)
+    tx = torch.rand((num_tx, 3), generator=gen) * torch.tensor([60.0, 10.0, 20.0])
+    tx = (tx + torch.tensor([-30.0, -5.0, 1.0])).to(device)
+    scene = Scene(transmitters=tx, mesh=mesh)
+    rx = (scene.with_receivers_grid(grid, grid).receivers.reshape(-1, 3) if grid
+          else torch.tensor([[20.0, 0.0, 1.5]], device=device))
+    candidates = torch.tensor([[24], [25]], device=device)
+    _, tris, mirror_vertices, mirror_normals = candidate_geometry(mesh, candidates)
+    args = (tx, rx.contiguous(), mirror_vertices, mirror_normals, tris,
+            mesh.triangle_vertices.contiguous(), None)
+    kw = {"order": 1, "epsilon": EPSILON, "hit_tol": HIT_TOL, "min_len": EPSILON}
+    verts, mask = _trace.trace_specular_cuda(*args, **kw)
+    want_verts, want_mask = _trace.trace_specular_reference(*args, **kw)
+    assert torch.equal(mask, want_mask)
+    assert int(mask.sum()) > 0
+    torch.testing.assert_close(verts[mask], want_verts[mask], atol=1e-4, rtol=0)
 
 
 def test_unfused_pipeline_uses_the_anyhit_kernel() -> None:
@@ -115,15 +148,17 @@ def _closest_rays(tv: torch.Tensor, device) -> tuple[torch.Tensor, torch.Tensor]
     return origins, directions
 
 
+@pytest.mark.parametrize("leaf_size", [5, 8, 16])
 @pytest.mark.parametrize("masked", [False, True])
-def test_closest_kernel_matches_reference(masked: bool) -> None:
+def test_closest_kernel_matches_reference(masked: bool, leaf_size: int) -> None:
     device = cuda_or_skip()
-    mesh = scenes.urban_scene(12, 12, device=device).mesh  # 5,186 triangles: 11 tiles
+    mesh = scenes.urban_scene(12, 12, device=device).mesh  # 5,186 triangles
     tv = mesh.triangle_vertices.contiguous()
     active = torch.from_numpy(triangle_mask(tv.shape[0], 31)).to(device) if masked else None
     o, d = _closest_rays(tv, device)
+    bvh = _bvh.build_bvh(tv, active, leaf_size=leaf_size)
     launches = _closest.LAUNCHES
-    idx, t = _closest.first_triangle_hit_by_ray_cuda(o, d, tv, active)
+    idx, t = _closest.first_triangle_hit_by_ray_cuda(o, d, tv, active, bvh=bvh)
     torch.cuda.synchronize()
     assert _closest.LAUNCHES == launches + 1
     want_idx, want_t = _closest.first_triangle_hit_by_ray_reference(o, d, tv, active)
@@ -132,14 +167,40 @@ def test_closest_kernel_matches_reference(masked: bool) -> None:
     assert torch.equal(t, want_t)
     assert bool((idx[40_000:42_000] == -1).all())  # the upward rays miss
     assert 0 < int((idx >= 0).sum()) < idx.numel()
-    # A differing index is a true tie: the kernel's (active) triangle is hit
-    # at the plain version's best t.
-    rays = torch.nonzero(idx != want_idx).squeeze(-1)
-    if rays.numel():
-        t_of, hit = ray_intersect_triangle(o[rays], d[rays], tv[idx[rays]])
-        assert bool(hit.all()) and torch.equal(t_of, want_t[rays])
-        if active is not None:
-            assert bool(active[idx[rays]].all())
+    # Every index is the tie key's winner among the triangles hit at that t.
+    winner = _closest.tie_key_winner(o, d, tv, active, want_t, bvh.positions)
+    assert torch.equal(idx, winner)
+
+
+def test_closest_tie_key_on_stacked_faces() -> None:
+    # The phase-5 (b) inputs of chip_smoke.py, fewer rays: rays through the
+    # mask's holes meet the coincident faces of the stacked boxes.
+    device = cuda_or_skip()
+    tv = scenes.urban_scene(8, 8, device=device).mesh.triangle_vertices.contiguous()
+    active = torch.arange(tv.shape[0], device=device) % 3 != 0
+    n = 200_000
+    o = torch.tensor([0.0, 0.0, 30.0], device=device).expand(n, 3).contiguous()
+    d = (fibonacci_lattice(n, device=device) * 500.0).contiguous()
+    idx, t = _closest.first_triangle_hit_by_ray_cuda(o, d, tv, active)
+    want_idx, want_t = _closest.first_triangle_hit_by_ray_reference(o, d, tv, active)
+    assert torch.equal(t, want_t)
+    positions = _bvh.build_bvh(tv, active).positions
+    winner = _closest.tie_key_winner(o, d, tv, active, want_t, positions)
+    assert torch.equal(idx, winner)
+    assert int((winner != want_idx).sum()) > 0  # ties the two rules break differently
+
+
+def test_paths_build_the_bvh_once_per_mesh() -> None:
+    device = cuda_or_skip()
+    scene = Scene(
+        transmitters=torch.tensor([[-30.0, 0.0, 20.0]], device=device),
+        mesh=scenes.street_canyon_scene(device=device).mesh,
+    ).with_receivers_grid(8, 8)
+    builds = _bvh.BUILDS
+    scene.trace_paths(order=1)
+    scene.trace_paths(order=0)
+    scene.launch_paths(order=1, num_rays=1000, max_dist=1.0)
+    assert _bvh.BUILDS == builds + 1
 
 
 def _street_scene(device) -> Scene:

@@ -49,7 +49,9 @@ def test_fibonacci_lattice_matches(n: int, frustum) -> None:
     ref = jax_lattice.fibonacci_lattice(
         n, frustum=None if frustum is None else jnp.asarray(frustum)
     )
-    ours = fibonacci_lattice(n, frustum=None if frustum is None else torch.from_numpy(frustum))
+    ours = fibonacci_lattice(
+        n, frustum=None if frustum is None else torch.from_numpy(frustum), device="cpu"
+    )
     assert ours.shape == (n, 3) and ours.dtype == torch.float32
     _close(ours, ref)
 

@@ -15,7 +15,7 @@ from differt_tpu_torch.geometry import Scene
 from differt_tpu_torch.scenes import street_canyon_scene
 
 scene = Scene(
-    transmitters=torch.tensor([[-30.0, 0.0, 20.0]]), mesh=street_canyon_scene().mesh
+    transmitters=torch.tensor([[-30.0, 0.0, 20.0]]), mesh=street_canyon_scene(device="cpu").mesh
 ).with_receivers_grid(8, 8)
 power = power_map(scene, 2.4e9, order=1)
 assert power.shape == (1, 8, 8), power.shape

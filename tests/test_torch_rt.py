@@ -12,6 +12,7 @@ from differt_tpu.ops._dispatch import dispatch_ray_intersect_any_triangle as jax
 from differt_tpu_torch import rt
 from differt_tpu_torch.ops import _rt
 from differt_tpu_torch.ops import dispatch_ray_intersect_any_triangle
+from differt_tpu_torch.ops._bvh import build_bvh
 
 from .torch_parity import HIT_TOL, random_segments, to_torch_scene, triangle_mask
 
@@ -164,37 +165,36 @@ def test_dispatch_matches_jax(city, masked: bool) -> None:
 def test_dispatch_empty_mesh_blocks_nothing() -> None:
     from differt_tpu_torch.geometry import Mesh
 
-    out = dispatch_ray_intersect_any_triangle(Mesh.empty(), torch.zeros(4, 3), torch.ones(4, 3))
+    out = dispatch_ray_intersect_any_triangle(Mesh.empty(device="cpu"), torch.zeros(4, 3), torch.ones(4, 3))
     assert out.shape == (4,) and not out.any()
 
 
 @pytest.mark.parametrize("masked", [False, True])
 def test_prepare_mesh_layout(city, masked: bool) -> None:
-    """The kernels' Morton-sorted mesh and boxes hold every active triangle."""
+    """The kernels' BVH holds every active triangle, in Morton order, inside its leaf's box."""
     _, ours = city
     tv = ours.mesh.triangle_vertices
     active = torch.from_numpy(triangle_mask(tv.shape[0], 19)) if masked else None
-    mesh, chunk_box, tile_box, num_chunks = _rt.prepare_mesh(tv, active)
+    bvh = build_bvh(tv, active)
     num = tv.shape[0]
-    assert mesh.shape == (num_chunks * 64, 12) and num_chunks == -(-num // 64)
-    assert chunk_box.shape == (num_chunks, 8)
-    assert tile_box.shape == (-(-num_chunks // 8), 8)
     perm = _rt._morton_perm(tv)
+    assert torch.equal(bvh.perm, perm)
+    tris = bvh.triangles
+    pos = tris.view(torch.int32)[:, 10].long()
+    live = tris[:, 9] > 0
     want_active = torch.ones(num, dtype=torch.bool) if active is None else active[perm]
-    assert torch.equal(mesh[:num, 9] > 0, want_active)
-    assert not mesh[num:, 9].any()
-    torch.testing.assert_close(mesh[:num, :3], tv[perm, 0], rtol=0, atol=0)
-    # Every active triangle lies inside its chunk's and its tile's box.
+    index = torch.arange(tris.shape[0])
+    real = (index < num - bvh.num_large) | (index >= bvh.large_begin)  # not leaf padding
+    assert torch.equal(torch.sort(pos[real]).values, torch.arange(num))
+    assert torch.equal(live, want_active[pos] & real)
+    torch.testing.assert_close(tris[live, :3], tv[perm[pos[live]], 0], rtol=0, atol=0)
+    # Every active tree triangle lies inside its leaf's box.
+    leaves = bvh.nodes[-(1 << bvh.depth) :]
     corners = torch.stack(
-        (mesh[:, :3], mesh[:, :3] + mesh[:, 3:6], mesh[:, :3] + mesh[:, 6:9]), dim=1
-    )[:num][want_active]
-    chunk_of = torch.arange(num)[want_active] // 64
-    for boxes, owner in ((chunk_box, chunk_of), (tile_box, chunk_of // 8)):
-        box = boxes[owner]
-        assert (box[:, 3] == 1.0).all()
-        assert (corners >= box[:, None, :3]).all() and (corners <= box[:, None, 4:7]).all()
-    chunk_alive = (mesh[:, 9].reshape(-1, 64) > 0).any(dim=-1)
-    assert torch.equal(chunk_box[:, 3] == 1.0, chunk_alive)
+        (tris[:, :3], tris[:, :3] + tris[:, 3:6], tris[:, :3] + tris[:, 6:9]), dim=1
+    )[: bvh.large_begin][live[: bvh.large_begin]]
+    box = leaves[torch.nonzero(live[: bvh.large_begin]).squeeze(-1) // bvh.leaf_size]
+    assert (corners >= box[:, None, :3]).all() and (corners <= box[:, None, 4:7]).all()
 
 
 def test_wrapper_rejects_other_devices_and_bad_inputs() -> None:
