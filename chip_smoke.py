@@ -141,70 +141,125 @@ def ptxas_lines(report: str) -> list[str]:
     return lines
 
 
-def check_anyhit(device, mesh, city, kernels: dict) -> None:
-    """Phase 2: the any-hit kernel against its plain version, at the test
-    shape (262,144 random segments) and at the main path's (order 0: the
-    TX to each of the 128 street receivers)."""
-    from differt_tpu_torch.ops import _bvh, _rt
+def unfused_segments(city, candidates: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The any-hit kernel's inputs (origins, directions, thresholds) of the
+    unfused pipeline's blockage call on ``candidates`` over the city's
+    receivers, made by the path's own helpers."""
+    from differt_tpu_torch.ops._dispatch import anyhit_segments
+    from differt_tpu_torch.rt._solvers import candidate_geometry, unfused_blockage_inputs
 
-    tv = mesh.triangle_vertices.contiguous()
-    bvh = mesh.bvh
+    _, tris, mirror_vertices, mirror_normals = candidate_geometry(city.mesh, candidates)
+    _, origins, directions, alive = unfused_blockage_inputs(
+        city.transmitters.reshape(-1, 3),
+        city.receivers.reshape(-1, 3),
+        tris,
+        mirror_vertices,
+        mirror_normals,
+        2 if city.mesh.assume_quads else 1,
+        epsilon=None,
+        min_len=TRACE_KW["min_len"],
+    )
+    return anyhit_segments(origins, directions, active_rays=alive[..., None])
+
+
+def anyhit_shapes(city) -> dict:
+    """Phase 2's any-hit inputs, ``label -> (origins, directions, thresholds)``:
+    (a) the test shape, 262,144 random segments over the city, 1/8 inactive;
+    (b) the main path's one call at order 0, the TX to each of the 128
+    street receivers; (c) the blockage call of the unfused pipeline's first
+    order-1 chunk (``megakernel=False``): 4,096 candidates x 128 receivers
+    x 2 segments, the rays of paths that failed a cheap check inactive."""
+    from differt_tpu_torch.geometry import generate_path_candidates
+
+    mesh = city.mesh
+    device = mesh.device
     rng = np.random.default_rng(0)
     lo, hi = mesh.bounding_box.cpu().numpy()
     lo[2], hi[2] = 0.5, hi[2] + 10.0
     start_pts = rng.uniform(lo, hi, (NUM_RAYS, 3)).astype(np.float32)
     end_pts = rng.uniform(lo, hi, (NUM_RAYS, 3)).astype(np.float32)
-    active = np.arange(NUM_RAYS) % 8 != 0  # 1/8 inactive
+    active = np.arange(NUM_RAYS) % 8 != 0
     thresh = np.where(active, 1.0 - 2.0 * HIT_TOL, -1.0).astype(np.float32)
-    random_rays = (
-        torch.from_numpy(start_pts).to(device),
-        torch.from_numpy(end_pts - start_pts).to(device),
-        torch.from_numpy(thresh).to(device),
-    )
-    rx = city.receivers.reshape(-1, 3)
-    o = torch.tensor(TX, device=device).expand_as(rx)
-    d = rx - o
-    main_rays = (
-        (o + d * HIT_TOL).contiguous(),
-        d.contiguous(),
-        torch.full((rx.shape[0],), 1.0 - 2.0 * HIT_TOL, device=device),
-    )
+    first_chunk = generate_path_candidates(mesh.num_primitives, 1, device=device)[:4096]
+    return {
+        "(a) 262,144 segments": (
+            torch.from_numpy(start_pts).to(device),
+            torch.from_numpy(end_pts - start_pts).to(device),
+            torch.from_numpy(thresh).to(device),
+        ),
+        "(b) main path, order 0": unfused_segments(
+            city, generate_path_candidates(mesh.num_primitives, 0, device=device)
+        ),
+        "(c) unfused order-1 chunk": unfused_segments(city, first_chunk),
+    }
+
+
+def check_anyhit(device, mesh, city, kernels: dict) -> None:
+    """Phase 2: the any-hit kernel against its plain version at the shapes
+    of :func:`anyhit_shapes`, at the split level its wrapper picks and at
+    level 0 (one walk per ray); then timed at both levels alone, in its
+    wrapper (given the BVH, and building it), plain, and on an empty launch
+    (every ray inactive) at the main path's shape."""
+    from differt_tpu_torch.ops import _bvh, _rt
+
+    tv = mesh.triangle_vertices.contiguous()
+    bvh = mesh.bvh
     eps = TRACE_KW["epsilon"]
-    for label, (o, d, th) in (("(a) 262,144 segments", random_rays), ("(b) main path, order 0", main_rays)):
-        got = _rt.ray_intersect_any_triangle_cuda(o, d, tv, None, hit_threshold=th, bvh=bvh)
+    for label, (o, d, th) in anyhit_shapes(city).items():
+        num = o.shape[0]
+        live = int((th >= 0).sum())
+        picked = _rt.anyhit_split(live, bvh.depth)  # the level the kernel picks on the card
         want = _rt.ray_intersect_any_triangle_reference(o, d, tv, None, hit_threshold=th)
-        mismatches = int((got != want).sum())
-        if mismatches:
-            msg = f"any-hit kernel disagrees with its plain version on {mismatches} rays ({label})"
-            raise AssertionError(msg)
+        got = _rt.ray_intersect_any_triangle_cuda(o, d, tv, None, hit_threshold=th, bvh=bvh)
         out = torch.empty_like(got)
+        _rt.launch_anyhit(o, d, th, bvh, eps, out, split=0)
+        for split, result in ((picked, got), (0, out)):
+            if mismatches := int((result != want).sum()):
+                msg = (
+                    f"any-hit kernel disagrees with its plain version on {mismatches} rays"
+                    f" ({label}, split level {split})"
+                )
+                raise AssertionError(msg)
+        level0_ms = cuda_ms(lambda: _rt.launch_anyhit(o, d, th, bvh, eps, out, split=0), 20)
         kernel_ms = cuda_ms(lambda: _rt.launch_anyhit(o, d, th, bvh, eps, out), 20)
         ms = cuda_ms(lambda: _rt.ray_intersect_any_triangle_cuda(o, d, None, hit_threshold=th, bvh=bvh), 20)
         build_ms = cuda_ms(lambda: _rt.ray_intersect_any_triangle_cuda(o, d, tv, None, hit_threshold=th), 3)
         plain_ms = cuda_ms(lambda: _rt.ray_intersect_any_triangle_reference(o, d, tv, None, hit_threshold=th), 2)
-        num = o.shape[0]
-        bound_ms, bound_by = bound(num * 29 + mesh_bytes(tv, None), num * MT_FLOPS)
+        # Bytes: each ray's origin, direction and threshold read once, its
+        # flag written once, and the mesh; operations: one Möller–Trumbore
+        # test for each live ray, the least a ray that is tested needs.
+        bound_ms, bound_by = bound(num * 29 + mesh_bytes(tv, None), live * MT_FLOPS)
         print(
-            f"phase 2 anyhit {label}: rays={num} triangles={tv.shape[0]}"
-            f" blocked={int(got.sum())} mismatches=0 kernel_only_ms={kernel_ms:.4f}"
+            f"phase 2 anyhit {label}: rays={num} live={live} triangles={tv.shape[0]}"
+            f" blocked={int(got.sum())} split={picked} (depth {bvh.depth},"
+            f" {_rt.anyhit_items(live, picked)} items) mismatches=0 (split {picked} and 0)"
+            f" kernel_only_ms={kernel_ms:.4f} kernel_only_split0_ms={level0_ms:.4f}"
             f" wrapper_ms={ms:.4f} wrapper_with_build_ms={build_ms:.3f} plain_ms={plain_ms:.3f}"
             f" bound_ms={bound_ms:.5f} ({bound_by})",
             flush=True,
         )
-    kernels["anyhit"] = {
-        "name": "anyhit",
-        "route": "cuda",
-        "source": "differt_tpu_torch/csrc/anyhit.cu",
-        "replaces": "differt_tpu/ops/_pallas_rt.py:228",
-        "shape": "main path order 0: 128 segments x 20,738 triangles",
-        "max_abs_err": 0.0,
-        "kernel_only_ms": kernel_ms,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,  # No single PyTorch call computes an any-hit test.
-    }
+        if label.startswith("(b)"):
+            inactive = torch.full_like(th, -1.0)
+            empty_ms = cuda_ms(lambda: _rt.launch_anyhit(o, d, inactive, bvh, eps, out), 20)
+            print(
+                f"phase 2 anyhit (b) empty launch, every ray inactive: split={picked}"
+                f" kernel_only_ms={empty_ms:.4f}",
+                flush=True,
+            )
+            kernels["anyhit"] = {
+                "name": "anyhit",
+                "route": "cuda",
+                "source": "differt_tpu_torch/csrc/anyhit.cu",
+                "replaces": "differt_tpu/ops/_pallas_rt.py:228",
+                "shape": "main path order 0: 128 segments x 20,738 triangles",
+                "max_abs_err": 0.0,
+                "kernel_only_ms": kernel_ms,
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "library_ms": None,  # No single PyTorch call computes an any-hit test.
+            }
     build_ms = cuda_ms(lambda: _bvh.build_bvh(tv, None), 5)
     print(
         f"phase 2 BVH build, 20,738 triangles: {build_ms:.3f} ms; nodes={bvh.num_nodes}"
@@ -250,11 +305,14 @@ def check_closest(device, kernels: dict) -> None:
         plain_ms = cuda_ms(
             lambda: _closest.first_triangle_hit_by_ray_reference(origins, directions, tv, active), 2
         )
+        num = idx.numel()
+        bound_ms, bound_by = bound(num * (24 + 8) + mesh_bytes(tv, active), num * MT_FLOPS)
         print(
-            f"phase 5 closest {label}: rays={idx.numel()} triangles={tv.shape[0]}"
+            f"phase 5 closest {label}: rays={num} triangles={tv.shape[0]}"
             f" hits={int((idx >= 0).sum())} ties_broken_otherwise_than_the_scan="
             f"{int((idx != want_idx).sum())} max_abs_err=0.0 kernel_only_ms={kernel_ms:.3f}"
-            f" wrapper_ms={ms:.3f} wrapper_with_build_ms={build_ms:.3f} plain_ms={plain_ms:.3f}",
+            f" wrapper_ms={ms:.3f} wrapper_with_build_ms={build_ms:.3f} plain_ms={plain_ms:.3f}"
+            f" bound_ms={bound_ms:.5f} ({bound_by})",
             flush=True,
         )
 
@@ -770,7 +828,9 @@ def main() -> None:
 
     order2 = main_candidates[: 32 * 4096]
     profile("coverage order 2, 32 chunks", lambda: coverage_run(city, 2, order2), ("trace_kernel",))
-    profile("coverage order 0", lambda: coverage_run(city, 0, None), ("anyhit_kernel",))
+    profile(
+        "coverage order 0", lambda: coverage_run(city, 0, None), ("compact_kernel", "anyhit_kernel")
+    )
     profile("SBR", lambda: launching["sbr"](launching["scene"]), ("closest_kernel",))
     profile("MLM", lambda: launching["mlm"](launching["scene"]), ("closest_kernel",))
 

@@ -26,7 +26,8 @@
 // the threshold for any-hit, the best t so far for closest-hit. The top
 // of the tree sits in shared memory (stage_top), the rest is read through
 // the read-only cache; a mesh of 20,000 triangles is about 1 MB and stays
-// in L2.
+// in L2. SubtreeWalk is the any-hit walk started at any node and taken one
+// node at a time, for the any-hit kernel's work items.
 //
 // Tensor cores do not apply: a ray-triangle test is a handful of cross and
 // dot products per pair, with no matrix product to feed them.
@@ -223,6 +224,21 @@ __device__ __forceinline__ void walk_tree(Vec3 o, Vec3 inv_d, const Bvh& bvh, co
   }
 }
 
+// Does o + t d hit one of the large-list triangles with eps < t < thresh?
+// (any_hit keeps its own copy of this loop: calling this one from it moves
+// the fused trace kernel's register allocation into a spill.)
+__device__ __forceinline__ bool large_hit(Vec3 o, Vec3 d, float thresh, const Bvh& bvh,
+                                          float eps) {
+  float t;
+  int pos;
+  for (int i = 0; i < bvh.num_large; ++i) {
+    if (record_hit(o, d, bvh.tris + 3 * (bvh.large_begin + i), eps, &t, &pos) && t < thresh) {
+      return true;
+    }
+  }
+  return false;
+}
+
 // Does o + t d hit any active triangle with eps < t < thresh? Returns at
 // the first hit.
 __device__ inline bool any_hit(Vec3 o, Vec3 d, float thresh, const Bvh& bvh, const float4* top,
@@ -246,6 +262,76 @@ __device__ inline bool any_hit(Vec3 o, Vec3 d, float thresh, const Bvh& bvh, con
   });
   return hit;
 }
+
+enum WalkStep { kWalkOn, kWalkHit, kWalkEnd };
+
+// The any-hit walk of walk_tree<false>, started at any node of the tree and
+// taken one node a call, so that a thread can end one walk and start
+// another between two steps (anyhit.cu). Entered at the root it visits the
+// nodes walk_tree<false> visits, in the same order. A walk started below
+// the root skips its ancestors' slab tests, which is sound: a child's box
+// lies inside its parent's, so it reaches every leaf under that node that
+// the whole walk would reach. The bound t_hi is the fixed threshold, so no
+// stacked node can fall past it (its tnear <= tfar <= thresh) and the stack
+// keeps no entry t.
+struct SubtreeWalk {
+  int link;
+  int flags;
+  int sp;
+  int stack_link[kMaxDepth];
+  int stack_flags[kMaxDepth];
+
+  // Enters the node (lo, hi): false if it holds no active triangle or the
+  // segment misses its box, and the walk is then over.
+  __device__ __forceinline__ bool start(Vec3 o, Vec3 inv_d, float thresh, float4 lo, float4 hi) {
+    flags = __float_as_int(hi.w);
+    link = __float_as_int(lo.w);
+    sp = 0;
+    float t_enter;
+    return (flags & kAlive) && slab_overlap(o, inv_d, lo, hi, thresh, &t_enter);
+  }
+
+  // Visits the current node: tests a leaf's triangles, or enters an inner
+  // node's children that pass (the second is stacked when both do).
+  // fetch(i, &lo, &hi) reads node i.
+  template <typename FetchFn>
+  __device__ __forceinline__ WalkStep step(Vec3 o, Vec3 d, Vec3 inv_d, float thresh,
+                                           const Bvh& bvh, float eps, FetchFn&& fetch) {
+    if (flags & kLeaf) {
+      float t;
+      int pos;
+      for (int j = 0; j < (flags >> 2); ++j) {
+        if (record_hit(o, d, bvh.tris + 3 * (link + j), eps, &t, &pos) && t < thresh) {
+          return kWalkHit;
+        }
+      }
+    } else {
+      float4 alo, ahi, blo, bhi;
+      fetch(link, &alo, &ahi);
+      fetch(link + 1, &blo, &bhi);
+      const int fa = __float_as_int(ahi.w);
+      const int fb = __float_as_int(bhi.w);
+      float ta, tb;
+      const bool ha = (fa & kAlive) && slab_overlap(o, inv_d, alo, ahi, thresh, &ta);
+      const bool hb = (fb & kAlive) && slab_overlap(o, inv_d, blo, bhi, thresh, &tb);
+      if (ha && hb) {
+        stack_link[sp] = __float_as_int(blo.w);
+        stack_flags[sp] = fb;
+        ++sp;
+      }
+      if (ha || hb) {
+        link = __float_as_int(ha ? alo.w : blo.w);
+        flags = ha ? fa : fb;
+        return kWalkOn;
+      }
+    }
+    if (sp == 0) return kWalkEnd;
+    --sp;
+    link = stack_link[sp];
+    flags = stack_flags[sp];
+    return kWalkOn;
+  }
+};
 
 // The closest-hit tie key. A smaller t wins; on an equal t, the larger
 // Morton chunk (pos / 64), then the smaller position: the rule of the

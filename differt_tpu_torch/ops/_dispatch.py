@@ -66,6 +66,42 @@ def get_backend(device: torch.device | None = None) -> str:
     return _BACKEND
 
 
+def anyhit_segments(
+    ray_origins: torch.Tensor,
+    ray_directions: torch.Tensor,
+    *,
+    hit_tol: float | None = None,
+    active_rays: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The any-hit kernel's inputs for segments ``o + t d``, ``0 < t < 1``, as the dispatch makes them.
+
+    Rays broadcast over ``[*batch, 3]``. Returns contiguous origins and
+    directions ``[N, 3]`` (inactive rays zeroed, origins moved by ``d *
+    hit_tol``) and thresholds ``[N]`` (``1 - 2 * hit_tol``, -1 for an
+    inactive ray), ``N`` the batch's size.
+    """
+    batch = torch.broadcast_shapes(ray_origins.shape[:-1], ray_directions.shape[:-1])
+    ray_origins, ray_directions = torch.broadcast_tensors(ray_origins, ray_directions)
+    if active_rays is not None:
+        active_rays = active_rays.expand(batch)
+        keep = active_rays[..., None]
+        ray_origins = torch.where(keep, ray_origins, 0.0)
+        ray_directions = torch.where(keep, ray_directions, 0.0)
+
+    if hit_tol is None:
+        hit_tol = 100.0 * F32_EPS
+    hit_tol = torch.as_tensor(hit_tol, dtype=torch.float32, device=ray_origins.device)
+    ray_origins = ray_origins + ray_directions * hit_tol
+    hit_threshold = (1.0 - 2.0 * hit_tol).expand(batch)
+    if active_rays is not None:
+        hit_threshold = torch.where(active_rays, hit_threshold, -1.0)
+    return (
+        ray_origins.reshape(-1, 3).contiguous(),
+        ray_directions.reshape(-1, 3).contiguous(),
+        hit_threshold.reshape(-1).contiguous(),
+    )
+
+
 def dispatch_ray_intersect_any_triangle(
     mesh,
     ray_origins: torch.Tensor,
@@ -84,23 +120,10 @@ def dispatch_ray_intersect_any_triangle(
     if mesh.num_triangles == 0:
         return torch.zeros(batch, dtype=torch.bool, device=ray_origins.device)
 
-    ray_origins, ray_directions = torch.broadcast_tensors(ray_origins, ray_directions)
-    if active_rays is not None:
-        active_rays = active_rays.expand(batch)
-        keep = active_rays[..., None]
-        ray_origins = torch.where(keep, ray_origins, 0.0)
-        ray_directions = torch.where(keep, ray_directions, 0.0)
-
-    if hit_tol is None:
-        hit_tol = 100.0 * F32_EPS
-    hit_tol = torch.as_tensor(hit_tol, dtype=torch.float32, device=ray_origins.device)
-    ray_origins = ray_origins + ray_directions * hit_tol
-    hit_threshold = (1.0 - 2.0 * hit_tol).expand(batch)
-    if active_rays is not None:
-        hit_threshold = torch.where(active_rays, hit_threshold, -1.0)
-
-    kw = {"hit_threshold": hit_threshold.reshape(-1).contiguous(), "epsilon": epsilon}
-    rays = (ray_origins.reshape(-1, 3).contiguous(), ray_directions.reshape(-1, 3).contiguous())
+    *rays, hit_threshold = anyhit_segments(
+        ray_origins, ray_directions, hit_tol=hit_tol, active_rays=active_rays
+    )
+    kw = {"hit_threshold": hit_threshold, "epsilon": epsilon}
     if get_backend(ray_origins.device) == "cuda":
         out = ray_intersect_any_triangle_cuda(*rays, None, None, bvh=mesh.bvh, **kw)
     else:

@@ -4,11 +4,18 @@ Replaces the TPU kernel ``differt_tpu/ops/_pallas_rt.py::_anyhit_kernel``
 (driver ``_run_anyhit``, entry ``pallas_ray_intersect_any_triangle``) with
 the hand-written CUDA kernel in ``differt_tpu_torch/csrc/anyhit.cu``.
 
-What bounds it on the H100 is the Möller–Trumbore work that culling cannot
-skip and the divergence of rays within a warp; the mesh (1 MB at 20,738
-triangles) sits in L2, so memory traffic is not the limit. The kernel runs
-one thread per ray down the mesh's BVH (:mod:`._bvh`), exiting at the
-first hit (see the kernel's header note).
+The kernel walks the mesh's BVH (:mod:`._bvh`); the mesh (1 MB at 20,738
+triangles) sits in L2, so memory traffic is not the limit, but the walk is a
+chain of dependent fetches at L2 latency. With few live rays (the main
+path's 128 order-0 segments; the unfused pipeline's million-ray chunks, of
+which about one ray in 1,000 is live) one walk per ray would leave most of
+the card's 132 SMs idle and last as long as the longest walk; with many, a
+warp would wait for its slowest ray while finished rays idle its lanes. So
+a first kernel lists the live rays, and the second splits each live ray's
+walk into work items, one per subtree at the level :func:`anyhit_split`
+picks from the live count (on the device, with no host sync); persistent
+warps take the items from a queue, refilling each lane as its item ends
+(see the kernel's header note).
 
 The helpers the BVH is built from (Morton sort, boxes with a margin, the
 fold of boxes, the slab test) are plain PyTorch here and keep the
@@ -27,6 +34,10 @@ T_SUB = 64
 _SLAB_TINY = 1e-30
 _MAX_PAIRS = 1 << 24
 """Ray-triangle pairs per tile of the plain any-hit version (bounds its memory)."""
+SPLIT_ITEMS = 1 << 17
+"""Work items the any-hit kernel's split aims at: about one for each thread the card holds at once."""
+_MAX_ITEMS = 1 << 30
+"""Most work items one any-hit launch takes (its queue counts them in int32)."""
 
 LAUNCHES = 0
 """Launches of the CUDA any-hit kernel in this process."""
@@ -249,9 +260,52 @@ def checked_bvh(triangle_vertices, active_triangles, bvh, device):
     return bvh
 
 
-def launch_anyhit(ray_origins, ray_directions, hit_threshold, bvh, epsilon: float, out) -> None:
-    """Launch ``csrc/anyhit.cu`` on checked inputs (counted in :data:`LAUNCHES`)."""
+def anyhit_split(num_live: int, depth: int) -> int:
+    """The tree level ``L`` at whose subtrees the any-hit kernel's work items start.
+
+    The least ``L`` with ``num_live * 2**L`` at or above
+    :data:`SPLIT_ITEMS`, at most the tree's ``depth`` (a subtree is then
+    one leaf). ``L = 0`` is one walk of the whole tree per ray. The kernel
+    applies this rule on the device to its count of live rays.
+
+    >>> anyhit_split(128, 13), anyhit_split(262_144, 13), anyhit_split(1, 3)
+    (10, 0, 3)
+    """
+    level = 0
+    while level < depth and num_live << level < SPLIT_ITEMS:
+        level += 1
+    return level
+
+
+def anyhit_items(num_live: int, split: int) -> int:
+    """Work items of an any-hit launch: a live ray's subtrees at level ``split``, and its large list."""
+    return num_live * ((1 << split) + (split > 0))
+
+
+def launch_anyhit(
+    ray_origins, ray_directions, hit_threshold, bvh, epsilon: float, out, *, split=None
+) -> None:
+    """Launch ``csrc/anyhit.cu`` on checked inputs (counted in :data:`LAUNCHES`).
+
+    ``split`` forces the level of the items' subtree roots; by default the
+    kernel picks it from its live count by :func:`anyhit_split`'s rule.
+    Every level from 0 to ``bvh.depth`` gives the same result.
+    """
     global LAUNCHES
+    num_rays = ray_origins.shape[0]
+    if split is None:
+        split = -1
+        most_items = num_rays + 2 * SPLIT_ITEMS  # the rule's most, whatever the live count
+    elif 0 <= split <= bvh.depth:
+        most_items = anyhit_items(num_rays, split)
+    else:
+        msg = f"split must be a level of the tree, 0 to {bvh.depth}, not {split}."
+        raise ValueError(msg)
+    if most_items > _MAX_ITEMS:
+        msg = f"{num_rays} rays can make more than {_MAX_ITEMS} work items."
+        raise ValueError(msg)
+    # Two counters, then the list of live rays.
+    scratch = torch.empty(2 + num_rays, dtype=torch.int32, device=out.device)
     status = load_kernels().differt_anyhit(
         ray_origins.data_ptr(),
         ray_directions.data_ptr(),
@@ -261,8 +315,11 @@ def launch_anyhit(ray_origins, ray_directions, hit_threshold, bvh, epsilon: floa
         bvh.num_nodes,
         bvh.large_begin,
         bvh.num_large,
-        ray_origins.shape[0],
+        num_rays,
+        split,
+        SPLIT_ITEMS,
         epsilon,
+        scratch.data_ptr(),
         out.data_ptr(),
         torch.cuda.current_stream(out.device).cuda_stream,
     )

@@ -124,6 +124,57 @@ def trace_path_candidates(
             num_tx, num_rx, num_candidates, order,
         )
 
+    full_paths, ray_origins, ray_directions, alive = unfused_blockage_inputs(
+        tx_vertices,
+        rx_vertices,
+        triangle_vertices,
+        mirror_vertices,
+        mirror_normals,
+        k,
+        epsilon=epsilon,
+        min_len=min_len,
+    )
+    # Check 3, last on purpose: only the paths that survived the cheap
+    # checks take the blockage test (the others are inactive rays). As in
+    # the reference, the blockage test keeps its default epsilon.
+    blocked = mesh.ray_intersect_any_triangle(
+        ray_origins,
+        ray_directions,
+        hit_tol=hit_tol,
+        active_rays=alive[..., None],
+    ).any(dim=-1)
+
+    mask = alive & ~blocked
+    if active_rays is not None:
+        mask = mask & active_rays
+    return _assemble_traced_paths(
+        full_paths, mask, path_candidates, interaction_types, k,
+        num_tx, num_rx, num_candidates, order,
+    )
+
+
+def unfused_blockage_inputs(
+    tx_vertices: torch.Tensor,
+    rx_vertices: torch.Tensor,
+    triangle_vertices: torch.Tensor,
+    mirror_vertices: torch.Tensor,
+    mirror_normals: torch.Tensor,
+    k: int,
+    *,
+    epsilon: float | None,
+    min_len: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The unfused pipeline up to its blockage test: the image method and four checks.
+
+    Takes ``[Ntx, 3]`` and ``[Nrx, 3]`` vertices and the candidates' mirrors
+    as :func:`candidate_geometry` gives them (``k`` triangles a mirror).
+    Returns the paths ``[Ntx, Nrx, C, order + 2, 3]`` (impossible ones
+    zeroed), their segments' origins and directions ``[Ntx, Nrx, C, order
+    + 1, 3]`` and ``alive`` ``[Ntx, Nrx, C]``: the paths that passed the
+    checks, whose segments take the blockage test.
+    """
+    num_tx, num_rx = tx_vertices.shape[0], rx_vertices.shape[0]
+    num_candidates, order = mirror_vertices.shape[:2]
     paths = image_method(
         tx_vertices[:, None, None, :],
         rx_vertices[None, :, None, :],
@@ -158,24 +209,8 @@ def trace_path_candidates(
     is_finite = torch.isfinite(full_paths).all(dim=-1).all(dim=-1)
     full_paths = torch.where(is_finite[..., None, None], full_paths, 0.0)
 
-    # Check 3, last on purpose: only the paths that survived the cheap
-    # checks take the blockage test (the others are inactive rays). As in
-    # the reference, the blockage test keeps its default epsilon.
     alive = inside & valid_reflections & ~too_small & is_finite
-    blocked = mesh.ray_intersect_any_triangle(
-        ray_origins,
-        ray_directions,
-        hit_tol=hit_tol,
-        active_rays=alive[..., None],
-    ).any(dim=-1)
-
-    mask = alive & ~blocked
-    if active_rays is not None:
-        mask = mask & active_rays
-    return _assemble_traced_paths(
-        full_paths, mask, path_candidates, interaction_types, k,
-        num_tx, num_rx, num_candidates, order,
-    )
+    return full_paths, ray_origins, ray_directions, alive
 
 
 def _assemble_traced_paths(

@@ -304,11 +304,12 @@ class _Model:
             tfar = np.fmin(tfar, np.fmax(t1[c], t2[c]))
         return bool(tnear <= tfar), tnear
 
-    def _walk(self, o, d, t_hi, visit_leaf, near_first: bool) -> None:
+    def _walk(self, o, d, t_hi, visit_leaf, near_first: bool, root: int = 0) -> None:
+        """``walk_tree`` from the root; from another node, ``SubtreeWalk`` (near_first False)."""
         tiny = np.float32(1e-30)
         inv = np.float32(1.0) / np.where(np.abs(d) < tiny, np.where(d < 0, -tiny, tiny), d)
         node = lambda i: (self.nodes[i, :3], self.nodes[i, 4:7], self.words[i, 3], self.words[i, 7])  # noqa: E731
-        lo, hi, link, flags = node(0)
+        lo, hi, link, flags = node(root)
         ok, _ = self._slab(o, inv, lo, hi, t_hi())
         if not (flags & _bvh.ALIVE) or not ok:
             return
@@ -351,6 +352,37 @@ class _Model:
 
         self._walk(o, d, lambda: np.float32(thresh), leaf, near_first=False)
         return any(found)
+
+    def record_hits(self, origins, directions, thresh) -> np.ndarray:
+        """``[R, num_records]``: ``record_hit`` and ``t < thresh`` of every ray and record."""
+        tri = torch.from_numpy(self.perm[self.pos])
+        t, hit = ray_intersect_triangle(
+            torch.from_numpy(origins)[:, None], torch.from_numpy(directions)[:, None],
+            self.tv[tri][None], epsilon=self.eps,
+        )
+        return hit.numpy() & self.active[None] & (t.numpy() < thresh[:, None])
+
+    def leaves_reached(self, o, d, thresh, root: int = 0) -> list[tuple[int, int]]:
+        """(first record, count) of every leaf the any-hit walk from ``root`` reaches, without exiting."""
+        leaves = []
+        self._walk(o, d, lambda: np.float32(thresh), lambda f, n: leaves.append((f, n)), False, root)
+        return leaves
+
+    def split_any_hit(self, o, d, thresh, hits, split: int) -> tuple[bool, set]:
+        """The any-hit kernel's items for one ray at level ``split``, their OR and the leaves reached.
+
+        At ``split = 0`` the one item tests the large list, then walks the
+        tree; above, the large list is an item and each subtree at level
+        ``split`` another. ``hits`` is the ray's row of :meth:`record_hits`.
+        """
+        if not thresh >= 0:
+            return False, set()
+        large = bool(hits[self.bvh.large_begin : self.bvh.large_begin + self.bvh.num_large].any())
+        first = (1 << split) - 1
+        reached = set()
+        for root in range(first, 2 * first + 1):
+            reached.update(self.leaves_reached(o, d, thresh, root))
+        return large or any(hits[f : f + n].any() for f, n in reached), reached
 
     def closest_hit(self, o, d) -> tuple[int, float]:
         best = [np.float32(np.inf), -1]
@@ -434,6 +466,64 @@ def test_model_any_hit_equals_the_plain_version(name: str, leaf_size: int) -> No
     ])
     assert torch.equal(got, want)
     assert 0 < int(got.sum()) < int(live.sum())
+
+
+@pytest.mark.parametrize("leaf_size", LEAF_SIZES)
+def test_model_split_any_hit_equals_the_whole_walk(mesh: Mesh, leaf_size: int) -> None:
+    # The any-hit kernel's work items at every split level: the OR over the
+    # large list and the level's subtrees equals the walk from the root and
+    # the plain version, and the subtrees reach every leaf the root's walk
+    # reaches (their ancestors' slab tests are skipped, never needed).
+    tv, active = mesh.triangle_vertices, mesh.mask
+    bvh = _bvh.build_bvh(tv, active, leaf_size=leaf_size)
+    bbox = mesh.bounding_box.numpy()
+    start, direction, live = random_segments(bbox, 48, 41)
+    # Half the segments start near the mesh's centre, inside the boxes of boxes60.
+    centre = bbox.mean(axis=0)
+    start[::2] = centre + 0.05 * (start[::2] - centre)
+    thresh = np.where(live, 1.0 - 2.0 * HIT_TOL, -1.0).astype(np.float32)
+    thresh[:3] = np.nan  # inactive, as a negative threshold
+    want = _rt.ray_intersect_any_triangle_reference(
+        torch.from_numpy(start), torch.from_numpy(direction), tv, active,
+        hit_threshold=torch.from_numpy(thresh),
+    ).numpy()
+    model = _Model(bvh, tv, 10.0 * float(np.finfo(np.float32).eps))
+    hits = model.record_hits(start, direction, thresh)
+    rays = list(zip(start, direction, thresh, hits, strict=True))
+    whole = [bool(th >= 0) and model.any_hit(o, d, th) for o, d, th, _ in rays]
+    np.testing.assert_array_equal(whole, want)
+    for split in range(bvh.depth + 1):
+        got = []
+        for o, d, th, row in rays:
+            hit, reached = model.split_any_hit(o, d, th, row, split)
+            got.append(hit)
+            if th >= 0:
+                assert set(model.leaves_reached(o, d, th)) <= reached
+        np.testing.assert_array_equal(got, want, err_msg=f"split level {split}")
+    if mesh.mask is None or mesh.mask.any():
+        assert want.any()
+
+
+@pytest.mark.parametrize(
+    ("num_rays", "name", "want"),
+    [(1, None, 17), (128, None, 10), (262_144, None, 0), (128, "one_triangle", 0),
+     (1, "all_inactive", None)],
+    ids=["1_ray", "128_rays", "262144_rays", "one_leaf", "all_inactive"],
+)
+def test_anyhit_split_rule(num_rays: int, name: str | None, want: int | None) -> None:
+    # The least level with num_rays * 2**L >= SPLIT_ITEMS (2**17), capped at
+    # the tree's depth; deep enough a tree (20 levels) when no mesh is named.
+    # The kernel applies it to its count of live rays.
+    depth = 20 if name is None else MESHES[name]().bvh.depth
+    split = _rt.anyhit_split(num_rays, depth)
+    if want is None:  # capped: the all-inactive canyon is shallow
+        want = depth
+        assert num_rays << depth < _rt.SPLIT_ITEMS
+    assert split == want
+    assert 0 <= split <= depth
+    assert split == depth or num_rays << split >= _rt.SPLIT_ITEMS
+    assert split == 0 or num_rays << (split - 1) < _rt.SPLIT_ITEMS
+    assert _rt.anyhit_items(num_rays, split) == num_rays * ((1 << split) + (split > 0))
 
 
 def test_tie_key_winner_rule() -> None:

@@ -13,7 +13,7 @@ import torch
 
 from differt_tpu_torch import ops, scenes
 from differt_tpu_torch.geometry import Scene, fibonacci_lattice, generate_path_candidates
-from differt_tpu_torch.ops import _bvh, _closest, _rt, _trace
+from differt_tpu_torch.ops import _build, _bvh, _closest, _rt, _trace
 from differt_tpu_torch.rt import ray_intersect_triangle
 from differt_tpu_torch.rt._solvers import candidate_geometry
 
@@ -22,28 +22,96 @@ from .torch_parity import EPSILON, HIT_TOL, cuda_or_skip, random_segments, trian
 pytestmark = pytest.mark.gpu
 
 
-@pytest.mark.parametrize("leaf_size", [5, 8, 16])
-@pytest.mark.parametrize("masked", [False, True])
-def test_anyhit_kernel_matches_reference(masked: bool, leaf_size: int) -> None:
-    device = cuda_or_skip()
+def _anyhit_segments(device, num_rays: int, seed: int, *, masked: bool = False):
+    """Random segments over urban_scene(4, 4) (578 triangles): rays, thresholds (a fifth of
+    the rays inactive, every seventh of those NaN), the triangles and their mask."""
     scene = scenes.urban_scene(4, 4, device=device)
     tv = scene.mesh.triangle_vertices.contiguous()
-    bbox = scene.mesh.bounding_box.cpu().numpy()
-    start, direction, active_rays = random_segments(bbox, 50_000, 23)
+    start, direction, active_rays = random_segments(
+        scene.mesh.bounding_box.cpu().numpy(), num_rays, seed
+    )
+    thresh = np.where(active_rays, 1.0 - 2.0 * HIT_TOL, -1.0).astype(np.float32)
+    thresh[np.flatnonzero(~active_rays)[::7]] = np.nan
     active = torch.from_numpy(triangle_mask(tv.shape[0], 29)).to(device) if masked else None
-    thresh = torch.from_numpy(
-        np.where(active_rays, 1.0 - 2.0 * HIT_TOL, -1.0).astype(np.float32)
-    ).to(device)
-    args = (torch.from_numpy(start).to(device), torch.from_numpy(direction).to(device), tv, active)
+    o, d = torch.from_numpy(start).to(device), torch.from_numpy(direction).to(device)
+    return o, d, torch.from_numpy(thresh).to(device), tv, active
+
+
+@pytest.mark.parametrize("num_rays", [1, 31, 128, 4_096, 262_144])
+@pytest.mark.parametrize("leaf_size", [5, 8, 16])
+@pytest.mark.parametrize("masked", [False, True])
+def test_anyhit_kernel_matches_reference(masked: bool, leaf_size: int, num_rays: int) -> None:
+    device = cuda_or_skip()
+    o, d, thresh, tv, active = _anyhit_segments(device, num_rays, 23, masked=masked)
     # 578 triangles: leaves of 5 and 16 do not divide the tree's 576.
     bvh = _bvh.build_bvh(tv, active, leaf_size=leaf_size)
     launches = _rt.LAUNCHES
-    got = _rt.ray_intersect_any_triangle_cuda(*args, hit_threshold=thresh, bvh=bvh)
+    got = _rt.ray_intersect_any_triangle_cuda(o, d, tv, active, hit_threshold=thresh, bvh=bvh)
     torch.cuda.synchronize()
     assert _rt.LAUNCHES == launches + 1
-    want = _rt.ray_intersect_any_triangle_reference(*args, hit_threshold=thresh)
+    want = _rt.ray_intersect_any_triangle_reference(o, d, tv, active, hit_threshold=thresh)
     assert torch.equal(got, want)
-    assert 0 < int(got.sum()) < int(active_rays.sum())
+    if num_rays >= 4_096:
+        assert 0 < int(got.sum()) < int((thresh >= 0).sum())
+    # Every split level, forced, gives the same result.
+    out = torch.empty_like(got)
+    for split in range(bvh.depth + 1):
+        _rt.launch_anyhit(o, d, thresh, bvh, EPSILON, out, split=split)
+        assert torch.equal(out, want), f"split level {split}"
+
+
+@pytest.mark.parametrize("fill", [-1.0, float("nan")], ids=["negative", "nan"])
+def test_anyhit_kernel_all_rays_inactive(fill: float) -> None:
+    device = cuda_or_skip()
+    o, d, thresh, tv, _ = _anyhit_segments(device, 4_096, 37)
+    bvh = _bvh.build_bvh(tv, None)
+    thresh = torch.full_like(thresh, fill)
+    out = torch.ones(4_096, dtype=torch.bool, device=device)  # the launch zeroes it
+    for split in range(bvh.depth + 1):
+        _rt.launch_anyhit(o, d, thresh, bvh, EPSILON, out, split=split)
+        assert not out.any()
+
+
+def test_anyhit_launches_back_to_back_reset_the_queue() -> None:
+    # More items than the card's lanes, so that the queue's counter decides
+    # which run: a counter left over by the launch before, on the same
+    # stream, or left high on purpose, must not skip any.
+    device = cuda_or_skip()
+    o, d, thresh, tv, _ = _anyhit_segments(device, 262_144, 43)
+    bvh = _bvh.build_bvh(tv, None)
+    want = _rt.ray_intersect_any_triangle_reference(o, d, tv, hit_threshold=thresh)
+    other = torch.where(thresh >= 0, thresh * 0.5, thresh)  # half as long
+    want_other = _rt.ray_intersect_any_triangle_reference(o, d, tv, hit_threshold=other)
+    first, second = torch.empty_like(want), torch.empty_like(want)
+    _rt.launch_anyhit(o, d, thresh, bvh, EPSILON, first, split=2)
+    _rt.launch_anyhit(o, d, other, bvh, EPSILON, second, split=2)
+    torch.cuda.synchronize()
+    assert torch.equal(first, want) and torch.equal(second, want_other)
+    assert not torch.equal(want, want_other)
+
+    # The C launch with its scratch's two counters (live rays, queue) left high.
+    scratch = torch.full((2 + o.shape[0],), 1 << 29, dtype=torch.int32, device=device)
+    out = torch.empty_like(want)
+    status = _build.load_kernels().differt_anyhit(
+        o.data_ptr(), d.data_ptr(), thresh.data_ptr(), bvh.nodes.data_ptr(),
+        bvh.triangles.data_ptr(), bvh.num_nodes, bvh.large_begin, bvh.num_large,
+        o.shape[0], 2, _rt.SPLIT_ITEMS, EPSILON, scratch.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream,
+    )
+    torch.cuda.synchronize()
+    assert status == 0 and torch.equal(out, want)
+    assert int(scratch[0]) == int((thresh >= 0).sum())  # reset, then counted from 0
+    assert 0 < int(scratch[1]) < 1 << 29
+
+
+def test_anyhit_split_is_checked() -> None:
+    device = cuda_or_skip()
+    o, d, thresh, tv, _ = _anyhit_segments(device, 8, 47)
+    bvh = _bvh.build_bvh(tv, None)
+    out = torch.empty(8, dtype=torch.bool, device=device)
+    for split in (-1, bvh.depth + 1):
+        with pytest.raises(ValueError, match="level of the tree"):
+            _rt.launch_anyhit(o, d, thresh, bvh, EPSILON, out, split=split)
 
 
 @pytest.mark.parametrize(("order", "quads"), [(1, False), (2, False), (2, True)])

@@ -139,6 +139,49 @@ def test_canyon_trace_paths_orders() -> None:
         assert_paths_match(got.mask, got.vertices.numpy(), want.mask, want.vertices)
 
 
+@pytest.mark.parametrize("order", [0, 1, 2])
+def test_unfused_blockage_inputs_give_the_jax_masks(order: int) -> None:
+    """The unfused pipeline's blockage inputs, blocked through the any-hit
+    segments the dispatch hands the kernel, give the masks of
+    ``trace_path_candidates(megakernel=False)`` and of the JAX pipeline."""
+    from differt_tpu import scenes as jax_scenes
+    from differt_tpu_torch.ops import _rt
+    from differt_tpu_torch.ops._dispatch import anyhit_segments
+    from differt_tpu_torch.rt._solvers import candidate_geometry, unfused_blockage_inputs
+
+    ref = JaxScene(
+        transmitters=jnp.array([[-30.0, 0.0, 20.0]]), mesh=jax_scenes.street_canyon_scene().mesh
+    ).with_receivers_grid(6, 5)
+    ours = to_torch_scene(ref)
+    mesh = ours.mesh
+    tx, rx = ours.transmitters.reshape(-1, 3), ours.receivers.reshape(-1, 3)
+    cands = torch.from_numpy(
+        np.array(generate_all_path_candidates(mesh.num_primitives, order))
+    ).to(torch.int64)
+    _, tris, mv, mn = candidate_geometry(mesh, cands)
+    _, origins, directions, alive = unfused_blockage_inputs(
+        tx, rx, tris, mv, mn, 1, epsilon=None, min_len=MIN_LEN
+    )
+    *segments, thresh = anyhit_segments(origins, directions, active_rays=alive[..., None])
+    assert thresh.shape == (alive.numel() * (order + 1),)
+    assert torch.equal(thresh >= 0, alive[..., None].expand(*alive.shape, order + 1).reshape(-1))
+    blocked = _rt.ray_intersect_any_triangle_reference(
+        *segments, mesh.triangle_vertices, hit_threshold=thresh
+    ).reshape(*alive.shape, order + 1)
+    mask = alive & ~blocked.any(dim=-1)
+    got = trace_path_candidates(mesh, tx, rx, cands, megakernel=False)
+    want = jax_trace_path_candidates(
+        ref.mesh,
+        ref.transmitters.reshape(-1, 3),
+        ref.receivers.reshape(-1, 3),
+        jnp.asarray(cands.numpy()),
+        megakernel=False,
+    )
+    np.testing.assert_array_equal(got.mask.numpy(), mask.numpy())
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(want.mask))
+    assert 0 < int(mask.sum()) < int(alive.sum()) or order == 0
+
+
 def test_trace_kernel_needs_order_one() -> None:
     scene = to_torch_scene(box_scene())
     with pytest.raises(ValueError, match="order >= 1"):
