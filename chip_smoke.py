@@ -8,7 +8,7 @@ Run from the repository root, on a host with one H100:
 It builds the hand-written CUDA kernels from ``differt_tpu_torch/csrc/``,
 checks each against its plain PyTorch version on the card, times each
 alone (on a prepared BVH), inside its wrapper and beside its plain
-version, and drives two paths, each counted from zero:
+version, and drives three paths, each counted from zero:
 
 - coverage: ``power_map_chunked`` on the 20,738-triangle
   ``urban_scene(24, 24)``, orders 0, 1 and 2, through the any-hit and
@@ -17,6 +17,15 @@ version, and drives two paths, each counted from zero:
   ``Scene.launch_paths`` (SBR, order 3, 250,000 rays) and
   ``Scene.compute_tx_mlm`` (order 2, 500,000 rays, 128 x 128 cells) on the
   9,218-triangle ``urban_scene(16, 16)``, through the closest-hit kernel;
+- the gradient step, at the width of the JAX package's
+  ``scaling.py::run_config5``: ``parallel.streamed_placement_step`` with 16
+  TX on ``urban_scene(24, 24)``, orders 1 and 2 in one list with 256
+  candidates each, tiles of 256 candidates x 2,048 receivers, through the
+  fused trace kernel's autograd Function (the kernel in passes 1 and 3,
+  its plain recompute in the backward); the receiver grid is the depth, as
+  deep as one warm step stays under a minute; anchored as ``scaling.py``
+  anchors it (streamed against direct autograd, a finite difference on the
+  permittivity), and at canyon size with smoothed masks;
 
 and checks that each path call went through its kernels, never through
 their plain versions, and built its mesh's BVH once. Then it profiles
@@ -57,6 +66,13 @@ TX = (0.0, 0.0, 40.0)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 MT_FLOPS = 51  # One Möller–Trumbore test: two crosses, four dots, a reciprocal, the checks.
+# The gradient step (scaling.py::run_config5's): 16 TX, 256 candidates an
+# order, tiles of 256 x 2,048; two materials (walls, ground) at 2.4 GHz.
+GRAD_TX, GRAD_SHARD, GRAD_RX_CHUNK = 16, 256, 2048
+GRAD_ETA, GRAD_SIGMA = (3.91, 5.24), (0.024, 0.123)
+GRAD_GRIDS = (256, 512, 1024)  # the depth: the largest whose warm step stays under STEP_LIMIT_S
+STEP_LIMIT_S = 60.0
+SMOOTHING = 50.0
 
 
 def cuda_ms(fn, repeats: int) -> float:
@@ -554,6 +570,528 @@ def profile(label: str, fn, kernel_names: tuple[str, ...]) -> None:
     )
 
 
+# -- The gradient path ----------------------------------------------------------
+
+
+def first_unique(rows: torch.Tensor, size: int) -> torch.Tensor:
+    """The first ``size`` distinct rows of ``rows``, in order."""
+    seen, keep = set(), []
+    for i, row in enumerate(map(tuple, rows.tolist())):
+        if row not in seen:
+            seen.add(row)
+            keep.append(i)
+    if len(keep) < size:
+        msg = f"only {len(keep)} distinct candidates, {size} wanted"
+        raise AssertionError(msg)
+    return rows[torch.tensor(keep[:size], device=rows.device)]
+
+
+def strided_candidates(num_primitives: int, order: int, size: int, device) -> torch.Tensor:
+    """``size`` candidates in groups of 8 spread evenly over the whole decode range."""
+    from differt_tpu_torch.geometry import count_path_candidates, generate_path_candidates
+
+    total = count_path_candidates(num_primitives, order)
+    groups = max(size // 8, 1)
+    step = max(total // groups, 1)
+    parts = [
+        generate_path_candidates(
+            num_primitives, order, start=min(g * step, total - 8), size=8, device=device
+        )
+        for g in range(groups)
+    ]
+    return torch.cat(parts)[:size]
+
+
+def placement_scene(device, grid: int, num_tx: int = GRAD_TX):
+    """The gradient step's scene: ``urban_scene(24, 24)`` with brick buildings
+    and a concrete ground, ``num_tx`` transmitters at 60 m on a square grid
+    inside 15% margins, ``grid`` x ``grid`` receivers at 1.5 m over the
+    mesh's bounding box (the layout of ``scaling.py::_city_scene``)."""
+    from differt_tpu_torch import scenes
+    from differt_tpu_torch.geometry import Scene
+
+    mesh = scenes.urban_scene(24, 24, device=device).mesh
+    materials = torch.zeros(mesh.num_triangles, dtype=torch.int64, device=device)
+    materials[-2:] = 1  # the ground's two triangles come last
+    mesh = dataclasses.replace(
+        mesh, material_names=("Brick", "Concrete"), face_materials=materials
+    )
+    (min_x, min_y, _), (max_x, max_y, _) = mesh.bounding_box.tolist()
+    side = int(round(num_tx**0.5))
+    gx, gy = torch.meshgrid(
+        torch.linspace(min_x + 0.15 * (max_x - min_x), max_x - 0.15 * (max_x - min_x), side),
+        torch.linspace(min_y + 0.15 * (max_y - min_y), max_y - 0.15 * (max_y - min_y), side),
+        indexing="xy",
+    )
+    tx = torch.stack((gx, gy, torch.full_like(gx, 60.0)), dim=-1).reshape(-1, 3).to(device)
+    return Scene(transmitters=tx, mesh=mesh).with_receivers_grid(grid, grid, height=1.5)
+
+
+def placement_candidates(scene) -> list[torch.Tensor]:
+    """The gradient step's candidates, ``GRAD_SHARD`` of each order, no duplicates.
+
+    Order 1: the eight largest triangles by area (the ground above all:
+    without it nearly every pixel sits at the floor of -300 dB) and a
+    stride over the rest. Order 2: every ordered pair of the ground's two
+    triangles and the 14 nearest wall triangles that face the sixth
+    transmitter, so that some double-bounce paths are valid (wall then
+    ground, wall then wall), then a stride.
+    """
+    mesh = scene.mesh
+    device = mesh.device
+    num = mesh.num_primitives
+    tv = mesh.triangle_vertices
+    areas = torch.linalg.cross(tv[:, 1] - tv[:, 0], tv[:, 2] - tv[:, 0]).norm(dim=-1)
+    top = torch.argsort(areas)[-8:]
+    order1 = first_unique(
+        torch.cat((top[:, None], strided_candidates(num, 1, GRAD_SHARD, device))), GRAD_SHARD
+    )
+    # Walls that face the sixth transmitter, the nearest first, without those
+    # of the building it stands over (within 20 m).
+    to_tx = scene.transmitters.reshape(-1, 3)[5] - tv.mean(dim=1)
+    dist = to_tx[:, :2].norm(dim=-1)
+    normals = mesh.normals
+    facing = (normals[:, 2].abs() < 0.1) & ((normals * to_tx).sum(dim=-1) > 0) & (dist > 20.0)
+    walls = torch.nonzero(facing).flatten()
+    near = walls[torch.argsort(dist[walls])[:14]]
+    picked = torch.cat((torch.tensor([num - 2, num - 1], device=device), near)).unique()
+    pairs = torch.cartesian_prod(picked, picked)
+    pairs = pairs[pairs[:, 0] != pairs[:, 1]]
+    order2 = first_unique(
+        torch.cat((pairs, strided_candidates(num, 2, GRAD_SHARD, device))), GRAD_SHARD
+    )
+    return [order1, order2]
+
+
+def tile_near_tx(scene, index: int = 5) -> torch.Tensor:
+    """The ``GRAD_RX_CHUNK`` receivers of the streamed step's tile that holds the
+    receiver nearest transmitter ``index`` (where the order-2 candidates have valid paths)."""
+    rx = scene.receivers.reshape(-1, 3)
+    tx = scene.transmitters.reshape(-1, 3)[index]
+    nearest = int((rx[:, :2] - tx[:2]).norm(dim=-1).argmin())
+    start = nearest // GRAD_RX_CHUNK * GRAD_RX_CHUNK
+    return rx[start : start + GRAD_RX_CHUNK].contiguous()
+
+
+def placement_kwargs(scene, candidates) -> dict:
+    device = scene.mesh.device
+    return {
+        "tx": scene.transmitters.reshape(-1, 3),
+        "eta_r": torch.tensor(GRAD_ETA, device=device),
+        "conductivity": torch.tensor(GRAD_SIGMA, device=device),
+        "path_candidates": candidates,
+        "candidate_chunk": GRAD_SHARD,
+        "rx_chunk": GRAD_RX_CHUNK,
+    }
+
+
+def length_gradients(scene, candidates: torch.Tensor):
+    """The valid paths' total length and its gradients to the TX, the RX and
+    the mesh's vertices, through ``trace_path_candidates`` as the backend
+    resolves it (the Function on the card; unfused and plain under
+    ``set_backend("torch")``)."""
+    from differt_tpu_torch.rt import trace_path_candidates
+
+    tx = scene.transmitters.reshape(-1, 3).clone().requires_grad_()
+    rx = scene.receivers.reshape(-1, 3).clone().requires_grad_()
+    vertices = scene.mesh.vertices.clone().requires_grad_()
+    mesh = dataclasses.replace(scene.mesh, vertices=vertices)
+    paths = trace_path_candidates(mesh, tx, rx, candidates)
+    seg = paths.vertices[..., 1:, :] - paths.vertices[..., :-1, :]
+    lengths = torch.sqrt((seg * seg).sum(dim=-1) + 1e-12).sum(dim=-1)
+    total = torch.where(paths.mask, lengths, 0.0).sum()
+    return total.detach(), torch.autograd.grad(total, (tx, rx, vertices)), paths.mask
+
+
+def check_function(label: str, scene, candidates: torch.Tensor, *, want_valid: bool) -> None:
+    """Phase 9: the fused trace's autograd Function on the card. Its
+    backward's recompute gives the kernel's vertices on every valid path
+    (gate 1e-4), and the gradients through it equal those of the plain,
+    unfused pipeline with direct autograd (rtol 1e-4); all finite."""
+    from differt_tpu_torch import ops
+    from differt_tpu_torch.ops import _trace
+    from differt_tpu_torch.rt._solvers import candidate_geometry
+
+    order = candidates.shape[1]
+    _, tris, mirror_vertices, mirror_normals = candidate_geometry(scene.mesh, candidates)
+    tx = scene.transmitters.reshape(-1, 3).contiguous()
+    rx = scene.receivers.reshape(-1, 3).contiguous()
+    verts, mask = _trace.trace_specular_cuda(
+        tx, rx, mirror_vertices, mirror_normals, tris, None, None,
+        order=order, **TRACE_KW, bvh=scene.mesh.bvh,
+    )
+    recomputed = _trace.trace_vertices(tx, rx, mirror_vertices, mirror_normals)
+    valid = int(mask.sum())
+    if want_valid and not valid:
+        msg = f"no valid path to compare the recompute on ({label})"
+        raise AssertionError(msg)
+    differ = int((recomputed[mask] != verts[mask]).sum())
+    err = float((recomputed[mask] - verts[mask]).abs().max()) if valid else 0.0
+    if not err <= 1e-4:
+        msg = f"the recompute's vertices differ from the kernel's by {err} ({label})"
+        raise AssertionError(msg)
+    del verts, recomputed
+
+    launches, calls = _trace.LAUNCHES, _trace.REFERENCE_CALLS
+    total, fused, fused_mask = length_gradients(scene, candidates)
+    if (_trace.LAUNCHES, _trace.REFERENCE_CALLS) != (launches + 1, calls):
+        msg = f"the Function did not launch the kernel once ({label})"
+        raise AssertionError(msg)
+    ops.set_backend("torch")
+    try:
+        want_total, plain, plain_mask = length_gradients(scene, candidates)
+    finally:
+        ops.set_backend("auto")
+    if not torch.equal(fused_mask, plain_mask):
+        msg = f"the Function's mask differs from the plain pipeline's ({label})"
+        raise AssertionError(msg)
+    worst = 0.0
+    for name, got, want in zip(("tx", "rx", "vertices"), fused, plain):
+        if not torch.isfinite(got).all():
+            msg = f"the Function's gradient to {name} is not finite ({label})"
+            raise AssertionError(msg)
+        scale = float(want.abs().max())
+        if want_valid and not scale > 0.0:
+            msg = f"the gradient to {name} is zero ({label})"
+            raise AssertionError(msg)
+        if scale:
+            rel = float(((got - want).abs() / (want.abs() + scale)).max())
+            worst = max(worst, rel)
+            if not torch.allclose(got, want, rtol=1e-4, atol=1e-4 * scale):
+                msg = f"the Function's gradient to {name} differs from the plain one's ({label}): {rel}"
+                raise AssertionError(msg)
+    print(
+        f"phase 9 function {label}: paths={mask.numel()} valid={valid}"
+        f" recompute_vs_kernel: entries_that_differ={differ} max_abs_err={err:.3g}"
+        f" total_length={total.item():.6g} (plain {want_total.item():.6g})"
+        f" gradient_max_rel_err={worst:.3g} (tx, rx, vertices; gate rtol 1e-4) finite=True",
+        flush=True,
+    )
+
+
+def run_placement(device, kernels: dict) -> None:
+    """Phases 10-12: the gradient step at full width, counted; its anchors on
+    a strided subsample of the same grid; a profile and a tile's breakdown."""
+    from differt_tpu_torch import ops
+    from differt_tpu_torch.coverage import _coverage_tile, complex_amplitudes, z_0
+    from differt_tpu_torch.ops import _bvh, _rt, _trace
+    from differt_tpu_torch.parallel import streamed_placement_loss, streamed_placement_step
+    from differt_tpu_torch.parallel._sharding import _placement_loss
+    from differt_tpu_torch.rt import trace_path_candidates
+
+    unit = {"tx_learning_rate": 1.0, "eta_learning_rate": 1.0}
+
+    def step(scene, candidates, **kw):
+        return streamed_placement_step(
+            scene, FREQUENCY, None, **{**placement_kwargs(scene, candidates), **unit, **kw}
+        )
+
+    card_s = {}  # label -> seconds between two CUDA events around the call: the card's own clock
+
+    def timed(fn, label=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        begin, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start = time.perf_counter()
+        begin.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        if label is not None:
+            card_s[label] = begin.elapsed_time(end) / 1e3
+        return out, wall, torch.cuda.max_memory_allocated() / 2**30
+
+    # Phase 10: the depth. A warm step at the smallest grid, then the largest
+    # grid whose step, at that rate per tile, stays under the limit.
+    scene = placement_scene(device, GRAD_GRIDS[0])
+    if scene.mesh.num_triangles != 20_738:
+        msg = f"urban_scene(24, 24) has {scene.mesh.num_triangles} triangles, expected 20,738"
+        raise AssertionError(msg)
+    candidates = placement_candidates(scene)
+    if ops.get_backend() != "auto":
+        msg = f"the gradient step needs the 'auto' backend, not {ops.get_backend()!r}"
+        raise AssertionError(msg)
+    step(scene, candidates)  # warm-up: run-time compilation of the complex ops' backward
+    _, small_wall, _ = timed(lambda: step(scene, candidates))
+    grid = max(
+        (g for g in GRAD_GRIDS if small_wall * (g / GRAD_GRIDS[0]) ** 2 <= STEP_LIMIT_S),
+        default=GRAD_GRIDS[0],
+    )
+    print(
+        f"phase 10 depth: a warm step at {GRAD_GRIDS[0]}x{GRAD_GRIDS[0]} took {small_wall:.2f} s,"
+        f" so {grid}x{grid} is predicted at {small_wall * (grid / GRAD_GRIDS[0]) ** 2:.1f} s"
+        f" (limit {STEP_LIMIT_S:.0f} s; grids {GRAD_GRIDS})",
+        flush=True,
+    )
+    scene = placement_scene(device, grid)
+    num_rx = scene.num_receivers
+    tiles = -(-num_rx // GRAD_RX_CHUNK) * len(candidates)
+
+    # Pass 1 alone (the loss entry point), for its wall, its peak and the map.
+    db_map, pass1_wall, pass1_peak = timed(
+        lambda: streamed_placement_loss(
+            fresh(scene), FREQUENCY, None, return_db_map=True,
+            **placement_kwargs(scene, candidates),
+        ),
+        "pass1",
+    )
+    lit_share = float((db_map > -299.0).float().mean())
+    mean_db = float(db_map.double().mean())
+    # Pass 2 alone, on sums of the same shape: the loss and its gradient.
+    re = torch.full_like(db_map, 1e-6).requires_grad_()
+    im = torch.full_like(db_map, 1e-6).requires_grad_()
+    _, pass2_wall, _ = timed(
+        lambda: torch.autograd.grad(_placement_loss(re, im, None), (re, im)), "pass2"
+    )
+    del db_map, re, im
+
+    run_scene = fresh(scene)
+    _rt.LAUNCHES = _trace.LAUNCHES = _rt.REFERENCE_CALLS = _trace.REFERENCE_CALLS = 0
+    _bvh.BUILDS = 0
+    (new_tx, new_eta, loss), wall, peak = timed(lambda: step(run_scene, candidates), "step")
+    counts = {
+        "trace": _trace.LAUNCHES,
+        "anyhit": _rt.LAUNCHES,
+        "trace_plain": _trace.REFERENCE_CALLS,
+        "anyhit_plain": _rt.REFERENCE_CALLS,
+        "bvh_builds": _bvh.BUILDS,
+    }
+    want_counts = {
+        "trace": 2 * tiles, "anyhit": 0, "trace_plain": 0, "anyhit_plain": 0, "bvh_builds": 1,
+    }
+    if counts != want_counts:
+        msg = f"the gradient step's counts are {counts}, expected {want_counts}"
+        raise AssertionError(msg)
+    tx0 = scene.transmitters.reshape(-1, 3)
+    g_tx = tx0 - new_tx
+    g_eta = torch.tensor(GRAD_ETA, device=device) - new_eta
+    tx_grad_norm = float(g_tx.norm())
+    if not (torch.isfinite(loss) and torch.isfinite(g_tx).all() and torch.isfinite(g_eta).all()):
+        msg = "the gradient step's loss or gradients are not finite"
+        raise AssertionError(msg)
+    if not tx_grad_norm > 0.0:
+        msg = "the gradient step's TX gradient is zero"
+        raise AssertionError(msg)
+    paths = GRAD_TX * num_rx * len(candidates) * GRAD_SHARD
+    kernels["trace"]["launches_by_path"] = {
+        "coverage": kernels["trace"]["launches"], "placement_step": counts["trace"],
+    }
+    kernels["trace"]["launches"] += counts["trace"]
+    print(
+        f"phase 10 gradient step: tx={GRAD_TX} grid={grid}x{grid} rx={num_rx}"
+        f" triangles={scene.mesh.num_triangles} orders=[1, 2] candidates={GRAD_SHARD} an order"
+        f" tile={GRAD_TX}x{GRAD_RX_CHUNK}x{GRAD_SHARD} tiles={tiles}"
+        f" wall_s={wall:.3f} pass1_wall_s={pass1_wall:.3f} pass2_wall_s={pass2_wall:.4f}"
+        f" pass3_wall_s={wall - pass1_wall - pass2_wall:.3f} (the step less passes 1 and 2)"
+        f" card_s={card_s['step']:.3f} pass1_card_s={card_s['pass1']:.3f}"
+        f" pass2_card_s={card_s['pass2']:.4f}"
+        f" pass3_card_s={card_s['step'] - card_s['pass1'] - card_s['pass2']:.3f}"
+        f" (CUDA events; the card's busy share is phase 8's)"
+        f" placement_step_paths_per_s={paths / wall:.4g}"
+        f" peak_GiB={peak:.2f} pass1_peak_GiB={pass1_peak:.2f}"
+        f" loss={float(loss):.6g} mean_dB={mean_db:.4f} tx_grad_norm={tx_grad_norm:.6g}"
+        f" eta_grad={g_eta.tolist()} pixels_above_floor={lit_share:.4f}"
+        f" counts={json.dumps(counts)}",
+        flush=True,
+    )
+
+    # Phase 11: anchors on strided subsamples of the same grid.
+    rx_flat = scene.receivers.reshape(-1, 3)
+    scene_sub = dataclasses.replace(scene, receivers=rx_flat[:: max(1, num_rx // 4096)])
+    scene_direct = dataclasses.replace(scene, receivers=rx_flat[:: max(1, num_rx // 1024)])
+    eta0 = torch.tensor(GRAD_ETA, device=device)
+    sigma = torch.tensor(GRAD_SIGMA, device=device)
+
+    # (1) The streamed TX gradient against direct autograd of the identical loss.
+    d_tx, _, d_loss = step(scene_direct, candidates)
+    g_streamed = tx0 - d_tx
+    tx_leaf = tx0.clone().requires_grad_()
+    rx_direct = scene_direct.receivers.reshape(-1, 3)
+    total = None
+    for cand in candidates:
+        part = _coverage_tile(
+            scene_direct, tx_leaf, rx_direct, cand, torch.zeros_like(cand, dtype=torch.int32),
+            torch.ones(cand.shape[0], dtype=torch.bool, device=device),
+            torch.tensor(FREQUENCY, device=device), eta0, sigma, None, True, None,
+        )
+        total = part if total is None else total + part
+    direct_loss = _placement_loss(total.real, total.imag, None)
+    (g_direct,) = torch.autograd.grad(direct_loss, tx_leaf)
+    cos = float((g_streamed * g_direct).sum() / (g_streamed.norm() * g_direct.norm() + 1e-30))
+    ratio = float(g_streamed.norm() / (g_direct.norm() + 1e-30))
+    if not (cos >= 0.999 and abs(ratio - 1.0) <= 0.01):
+        msg = f"the streamed TX gradient is off the direct one: cosine {cos}, norm ratio {ratio}"
+        raise AssertionError(msg)
+    del total, direct_loss
+
+    def sub_loss(tx, eta) -> float:
+        db = streamed_placement_loss(
+            scene_sub, FREQUENCY, None, return_db_map=True,
+            **{**placement_kwargs(scene_sub, candidates), "tx": tx, "eta_r": eta},
+        )
+        return -float(db.double().cpu().mean())  # the mean in float64, on the host
+
+    # (2) A central difference on the permittivity: no geometry moves, no mask flips.
+    sub_tx, sub_eta, _ = step(scene_sub, candidates)
+    g_tx_sub, g_eta_sub = tx0 - sub_tx, eta0 - sub_eta
+    eta_norm = float(g_eta_sub.norm())
+    u_eta = g_eta_sub / max(eta_norm, 1e-30)
+    h_eta = 1e-2
+    fd_eta = (sub_loss(tx0, eta0 + h_eta * u_eta) - sub_loss(tx0, eta0 - h_eta * u_eta)) / (2 * h_eta)
+    eta_rel = abs(fd_eta - eta_norm) / max(eta_norm, 1e-30)
+    if not eta_rel <= 0.01:
+        msg = f"the permittivity finite difference {fd_eta} is off the streamed gradient {eta_norm}"
+        raise AssertionError(msg)
+    # (3) The raw TX central difference, beside the autograd slope: their gap is
+    # the drift of hard masks that flip as the TX moves (not gated).
+    sub_norm = float(g_tx_sub.norm())
+    u_tx = g_tx_sub / max(sub_norm, 1e-30)
+    h_tx = 5e-4
+    fd_tx = (sub_loss(tx0 + h_tx * u_tx, eta0) - sub_loss(tx0 - h_tx * u_tx, eta0)) / (2 * h_tx)
+    print(
+        f"phase 11 anchors: (1) streamed vs direct autograd on {rx_direct.shape[0]} rx:"
+        f" cosine={cos:.6f} norm_ratio={ratio:.5f} loss={float(d_loss):.6g}"
+        f" (gates: cosine >= 0.999, ratio within 1%);"
+        f" (2) eta central difference on {scene_sub.num_receivers} rx, h={h_eta}:"
+        f" fd={fd_eta:.6g} streamed={eta_norm:.6g} rel_err={eta_rel:.2e} (gate 1%);"
+        f" (3) raw tx central difference, h={h_tx} m: fd={fd_tx:.6g} autograd_slope={sub_norm:.6g}"
+        f" (not gated: the gap is the hard masks' drift)",
+        flush=True,
+    )
+
+    # Phase 12: where a tile's time goes (CUDA events, warm), and a profile
+    # of a step of 16 tiles (a 128 x 128 grid).
+    cand = candidates[1]
+    rx_tile = tile_near_tx(scene)
+    itypes = torch.zeros_like(cand, dtype=torch.int32)
+    valid = torch.ones(cand.shape[0], dtype=torch.bool, device=device)
+    freq = torch.tensor(FREQUENCY, device=device)
+    scene_tile = dataclasses.replace(scene, receivers=rx_flat[:0])
+
+    def tile_forward(tx, eta):
+        a = _coverage_tile(
+            scene_tile, tx, rx_tile, cand, itypes, valid, freq, eta, sigma, None, True, None
+        )
+        return a.real, a.imag
+
+    def tile_backward():
+        tx, eta = tx0.clone().requires_grad_(), eta0.clone().requires_grad_()
+        parts = tile_forward(tx, eta)
+        return torch.autograd.grad(parts, (tx, eta), (torch.ones_like(parts[0]),) * 2)
+
+    def recompute_backward():
+        from differt_tpu_torch.rt._solvers import candidate_geometry
+
+        _, _, mirror_vertices, mirror_normals = candidate_geometry(scene.mesh, cand)
+        tx = tx0.clone().requires_grad_()
+        verts = _trace.trace_vertices(tx, rx_tile, mirror_vertices, mirror_normals)
+        return torch.autograd.grad(verts, tx, torch.ones_like(verts))
+
+    with torch.no_grad():
+        paths_tile = trace_path_candidates(scene.mesh, tx0, rx_tile, cand)
+        trace_ms = cuda_ms(lambda: trace_path_candidates(scene.mesh, tx0, rx_tile, cand), 5)
+        em_ms = cuda_ms(
+            lambda: complex_amplitudes(
+                paths_tile, scene_tile, freq, eta_r=eta0, conductivity=sigma
+            ),
+            5,
+        )
+        forward_ms = cuda_ms(lambda: tile_forward(tx0, eta0), 5)
+    both_ms = cuda_ms(tile_backward, 3)
+    recompute_ms = cuda_ms(recompute_backward, 3)
+    # The EM chain's per-bounce gather of the triangles' table, forward and
+    # backward, as `utils.gather_columns` writes it (an embedding lookup)
+    # and as plain indexing: the tile repeats each of its 256 rows 32,768 times.
+    from differt_tpu_torch.utils import gather_columns
+
+    idx = paths_tile.objects[..., 1]
+    table = torch.cat((scene.mesh.normals, scene.mesh.normals), dim=-1).requires_grad_()
+    cot = torch.ones((6, *idx.shape), device=device)
+    gather_ms = cuda_ms(lambda: torch.autograd.grad(gather_columns(table, idx), table, cot), 3)
+    index_ms = cuda_ms(
+        lambda: torch.autograd.grad(torch.movedim(table[idx], -1, 0), table, cot), 3
+    )
+    print(
+        f"phase 12 tile, order 2, {GRAD_TX}x{GRAD_RX_CHUNK}x{GRAD_SHARD} paths"
+        f" ({int(paths_tile.mask.sum())} valid), elapsed on the card's clock (CUDA events):"
+        f" trace_ms={trace_ms:.2f} em_forward_ms={em_ms:.2f} tile_forward_ms={forward_ms:.2f}"
+        f" tile_forward_and_backward_ms={both_ms:.2f}"
+        f" recompute_forward_and_backward_ms={recompute_ms:.2f}"
+        f" gather_forward_and_backward_ms={gather_ms:.2f} (as plain indexing: {index_ms:.2f})",
+        flush=True,
+    )
+    del paths_tile, idx, table, cot
+    small = placement_scene(device, 128)
+    profile(
+        "gradient step, 16 tiles (128 x 128 rx)",
+        lambda: step(small, candidates),
+        ("trace_kernel",),
+    )
+
+
+def run_smoothed(device) -> None:
+    """Phase 13: the smoothed step at canyon size: the streamed TX gradient
+    against a central difference of the streamed loss (rtol 0.05)."""
+    from differt_tpu_torch import scenes
+    from differt_tpu_torch.geometry import Scene, generate_path_candidates
+    from differt_tpu_torch.ops import _rt, _trace
+    from differt_tpu_torch.parallel import streamed_placement_loss, streamed_placement_step
+
+    # Receivers in the street: over the bounding box two thirds of them sit
+    # inside the buildings, at the floor of -300 dB, and a pixel that crosses
+    # the floor as the TX moves is a jump no gradient sees.
+    y, x = torch.meshgrid(
+        torch.linspace(-8.0, 8.5, 8, device=device),
+        torch.linspace(-45.0, 44.0, 24, device=device),
+        indexing="ij",
+    )
+    scene = Scene(
+        transmitters=torch.tensor([[-30.0, 1.7, 20.0]], device=device),
+        receivers=torch.stack((x, y, torch.full_like(x, 1.45)), dim=-1),
+        mesh=scenes.street_canyon_scene(device=device).mesh,
+    )
+    tx0 = scene.transmitters
+    kw = {
+        "eta_r": torch.tensor([5.24], device=device),
+        "conductivity": torch.tensor([0.1], device=device),
+        "path_candidates": generate_path_candidates(scene.mesh.num_triangles, 1, device=device),
+        "candidate_chunk": 16,
+        "rx_chunk": 64,
+        "smoothing_factor": SMOOTHING,
+    }
+    launches = (_trace.LAUNCHES, _rt.LAUNCHES)
+    new_tx, _, loss = streamed_placement_step(
+        scene, FREQUENCY, None, tx=tx0, tx_learning_rate=1.0, eta_learning_rate=1.0, **kw
+    )
+    if (_trace.LAUNCHES, _rt.LAUNCHES) != launches:
+        msg = "the smoothed step launched a hard-mask kernel"
+        raise AssertionError(msg)
+    g = tx0 - new_tx
+    g_norm = float(g.norm())
+    if not (torch.isfinite(loss) and torch.isfinite(g).all() and g_norm > 0.0):
+        msg = f"the smoothed step's loss {float(loss)} or gradient {g.tolist()} is unusable"
+        raise AssertionError(msg)
+    u = g / g_norm
+    h = 5e-4
+
+    def loss_at(tx) -> float:
+        db = streamed_placement_loss(scene, FREQUENCY, None, tx=tx, return_db_map=True, **kw)
+        return -float(db.double().cpu().mean())
+
+    fd = (loss_at(tx0 + h * u) - loss_at(tx0 - h * u)) / (2.0 * h)
+    rel = abs(fd - g_norm) / g_norm
+    if not rel <= 0.05:
+        msg = f"the smoothed finite difference {fd} is off the streamed gradient {g_norm}"
+        raise AssertionError(msg)
+    print(
+        f"phase 13 smoothed step, canyon, order 1, smoothing_factor={SMOOTHING:.0f},"
+        f" {scene.num_receivers} rx: loss={float(loss):.6g} streamed_gradient_norm={g_norm:.6g}"
+        f" central_difference={fd:.6g} (h={h} m) rel_err={rel:.3e} (gate 5%)",
+        flush=True,
+    )
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         msg = "chip_smoke.py needs a CUDA device, and none is visible."
@@ -716,6 +1254,18 @@ def main() -> None:
     )
     row = check_trace("(d) main path chunk", city, main_candidates[:4096], 2)
     trace_errors.append(row["max_abs_err"])
+    # (e), (f) The gradient step's launches: one tile of 16 TX x 256
+    # candidates x 2,048 receivers, of each order.
+    grad_scene = placement_scene(device, GRAD_GRIDS[0])
+    tile_scene = dataclasses.replace(grad_scene, receivers=tile_near_tx(grad_scene))
+    tile_rows = {}
+    for label, candidates in zip(("(e)", "(f)"), placement_candidates(grad_scene)):
+        order = candidates.shape[1]
+        tile_rows[f"order {order}"] = check_trace(
+            f"{label} gradient-step tile, order {order}", tile_scene, candidates, order,
+            want_valid=True,
+        )
+        trace_errors.append(tile_rows[f"order {order}"]["max_abs_err"])
     kernels["trace"] = {
         "name": "trace",
         "route": "cuda",
@@ -724,6 +1274,10 @@ def main() -> None:
         "shape": "main path order 2 chunk: 4,096 candidates x 128 RX x 20,738 triangles",
         **row,
         "max_abs_err": max(trace_errors),
+        "placement_tile": {
+            "shape": "gradient-step tile: 16 TX x 256 candidates x 2,048 RX x 20,738 triangles",
+            **tile_rows,
+        },
     }
 
     # Phase 4: the main path, counted: each order's call on a fresh mesh.
@@ -825,6 +1379,16 @@ def main() -> None:
 
     check_closest(device, kernels)
     launching = run_ray_launching(device, kernels)
+
+    # Phase 9: the fused trace's Function, at the main path's first chunk, on
+    # the near pairs of phase 3 (c) (valid paths in the city) and on the
+    # canyon, whose walls are parallel mirrors.
+    check_function("(a) main path chunk", city, main_candidates[:4096], want_valid=False)
+    check_function("(b) city near pairs", city, pairs, want_valid=True)
+    canyon_pairs = generate_path_candidates(canyon.mesh.num_primitives, 2, device=device)
+    check_function("(c) canyon order 2", canyon, canyon_pairs, want_valid=True)
+    run_placement(device, kernels)
+    run_smoothed(device)
 
     order2 = main_candidates[: 32 * 4096]
     profile("coverage order 2, 32 chunks", lambda: coverage_run(city, 2, order2), ("trace_kernel",))

@@ -1,11 +1,15 @@
-"""Coverage maps (PyTorch port of ``differt_tpu.coverage``, forward, hard masks).
+"""Differentiable coverage maps (PyTorch port of ``differt_tpu.coverage``).
 
 Trace the specular paths, run the slab-Fresnel Jones chain on them, and sum
 the complex channel amplitudes per TX/RX pixel. :func:`power_map_chunked`
 streams candidates and receivers through fixed-size tiles, so memory stays
-``O(candidate_chunk * rx_chunk)`` at city scale.
+``O(candidate_chunk * rx_chunk)`` at city scale. Gradients flow from the map
+to the transmitters, the materials and the mesh's vertices; with a
+``smoothing_factor`` each path is weighted by its float confidence, and
+they flow through path validity too.
 """
 
+import dataclasses
 import math
 
 import torch
@@ -34,9 +38,13 @@ def complex_amplitudes(
 
     Applies the free-space 1/s spreading, the propagation phase, the
     per-bounce slab-aware Fresnel Jones chain and the isotropic
-    ``lambda / (4 pi)`` scaling; invalid paths contribute 0. Paths whose
+    ``lambda / (4 pi)`` scaling; invalid paths contribute 0, and a float
+    ``paths.mask`` weights each path by its confidence. Paths whose
     geometry is not usable (non-finite, or a zero-length segment) are
-    computed on a harmless straight dummy path and weighted 0.
+    computed on a harmless straight dummy path and weighted 0: a zero
+    weight alone would not do, as ``0 * inf`` in a backward is NaN. The
+    substitution looks at the geometry, not at the mask: a path of low
+    confidence still contributes its own amplitude times that confidence.
     """
     if tx_pattern is not None:
         raise _antennas_not_ported()
@@ -139,6 +147,8 @@ def complex_amplitudes(
     a = a * (wavelength / (4 * math.pi))
 
     weight = paths.mask.to(torch.float32) * geom_finite.to(torch.float32)
+    # complex * float multiplies both parts: no complex-valued backward of
+    # the weight enters a gradient through the confidence.
     return a * weight
 
 
@@ -240,11 +250,15 @@ def _coverage_tile(
     thickness: torch.Tensor | None,
     coherent: bool,
     megakernel: bool | None,
+    batch_size: int | None = 512,
+    smoothing_factor: float | None = None,
 ) -> torch.Tensor:
     """One (RX tile, candidate chunk) step of :func:`power_map_chunked`.
 
     Returns the complex path sum (``coherent``) or the power sum per
-    ``[num_tx, rx_chunk]`` pixel; padded candidates are masked out.
+    ``[num_tx, rx_chunk]`` pixel; padded candidates are masked out. With a
+    ``smoothing_factor`` the checks are sigmoids and each path's amplitude
+    is weighted by its confidence.
     """
     from .rt._solvers import trace_path_candidates
 
@@ -255,13 +269,14 @@ def _coverage_tile(
         cand_chunk,
         interaction_types=itype_chunk,
         megakernel=megakernel,
+        batch_size=batch_size,
+        smoothing_factor=smoothing_factor,
     )
-    paths = TracedPaths(
-        paths.vertices,
-        paths.objects,
-        mask=paths.mask & chunk_valid,
-        interaction_types=paths.interaction_types,
-    )
+    if paths.mask.dtype == torch.bool:
+        mask = paths.mask & chunk_valid
+    else:  # a confidence is weighted, not AND-ed
+        mask = paths.mask * chunk_valid.to(paths.mask.dtype)
+    paths = dataclasses.replace(paths, mask=mask)
     a = complex_amplitudes(
         paths,
         scene,
@@ -289,6 +304,8 @@ def power_map_chunked(
     rx_chunk: int = 4096,
     tx_pattern=None,
     megakernel: bool | None = None,
+    batch_size: int | None = 512,
+    smoothing_factor: float | None = None,
 ) -> torch.Tensor:
     """Coverage map streamed through fixed-size tiles, ``[*tx_batch, *rx_batch]``.
 
@@ -296,7 +313,9 @@ def power_map_chunked(
     ``rx_chunk`` receivers, accumulating the complex path sum (or the power
     sum) per pixel. The receivers are Morton-ordered first, so each tile is
     spatially compact; the map is scattered back to input order.
-    ``path_candidates`` overrides the exhaustive candidate set.
+    ``path_candidates`` overrides the exhaustive candidate set;
+    ``smoothing_factor`` and ``batch_size`` go to the trace
+    (:func:`~differt_tpu_torch.rt.trace_path_candidates`).
     """
     if tx_pattern is not None:
         raise _antennas_not_ported()
@@ -355,6 +374,8 @@ def power_map_chunked(
                 thickness,
                 coherent,
                 megakernel,
+                batch_size,
+                smoothing_factor,
             )
             acc = part if acc is None else acc + part
         out_tiles.append(acc)

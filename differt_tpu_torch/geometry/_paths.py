@@ -1,8 +1,9 @@
 """Traced and launched path containers (PyTorch port of ``differt_tpu.geometry._paths``, subset).
 
-Paths keep full, fixed batch shapes plus boolean validity masks: invalid
-paths are masked, never dropped. (Float confidence masks come with the
-smoothed checks, ROADMAP A5.)
+Paths keep full, fixed batch shapes plus validity masks: invalid paths are
+masked, never dropped. A traced path's mask is boolean, or with the
+smoothed checks a float confidence that :attr:`TracedPaths.valid_mask`
+holds against a threshold.
 """
 
 import dataclasses
@@ -20,9 +21,11 @@ class TracedPaths:
     objects: torch.Tensor
     """``[*batch, path_length]`` object index per vertex (TX and RX indices at the ends)."""
     mask: torch.Tensor
-    """``[*batch]`` bool validity mask."""
+    """``[*batch]`` bool validity mask, or float confidence held against :attr:`confidence_threshold`."""
     interaction_types: torch.Tensor
     """``[*batch, path_length - 2]`` per-bounce interaction types."""
+    confidence_threshold: float = 0.5
+    """Confidence from which a path with a float mask counts as valid."""
 
     @property
     def shape(self) -> tuple[int, ...]:
@@ -39,8 +42,15 @@ class TracedPaths:
         return self.path_length - 2
 
     @property
+    def valid_mask(self) -> torch.Tensor:
+        """``[*batch]`` bool validity mask (a confidence resolved by the threshold)."""
+        if self.mask.dtype == torch.bool:
+            return self.mask
+        return self.mask >= self.confidence_threshold
+
+    @property
     def num_valid_paths(self) -> int:
-        return int(torch.count_nonzero(self.mask))
+        return int(torch.count_nonzero(self.valid_mask))
 
     def reshape(self, *batch: int) -> "TracedPaths":
         """Reshape the batch dimensions (``-1`` wildcards allowed)."""

@@ -83,7 +83,7 @@ class Scene:
 
         ``solver_kwargs`` configure the
         :class:`~differt_tpu_torch.rt.ExhaustivePathTracer` (tolerances,
-        ``megakernel``). Returns :class:`TracedPaths` of batch shape
+        ``smoothing_factor``, ``megakernel``). Returns :class:`TracedPaths` of batch shape
         ``[*tx_batch, *rx_batch, num_candidates]``.
         """
         from ..rt._solvers import ExhaustivePathTracer

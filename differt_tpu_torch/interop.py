@@ -8,7 +8,11 @@ both packages can trace the same geometry.
 Mesh keys: ``vertices``, ``triangles``, ``face_materials``,
 ``material_names``, ``mask``, ``object_bounds``, ``assume_quads``; the
 optional ones may be missing or None. Scene keys: ``transmitters``,
-``receivers`` and ``mesh`` (a mesh dict).
+``receivers`` and ``mesh`` (a mesh dict). A placement problem (the inputs
+of ``parallel.streamed_placement_step`` beside the scene) has the keys
+``tx``, ``eta_r``, ``conductivity``, and optionally ``thickness``,
+``target_power`` and ``path_candidates`` (one ``[C, order]`` array, or a
+list with one array per order).
 """
 
 import numpy as np
@@ -73,3 +77,26 @@ def scene_to_numpy(scene: Scene) -> dict:
         "receivers": scene.receivers.detach().cpu().numpy(),
         "mesh": mesh_to_numpy(scene.mesh),
     }
+
+
+def placement_from_numpy(fields: dict, *, device: torch.device | str | None = None) -> dict:
+    """The keyword arguments of a placement step on ``device`` (the card when None).
+
+    Transmitters ``tx [num_tx, 3]``, the per-material tables ``eta_r``,
+    ``conductivity`` and ``thickness``, a ``target_power`` map in dB and the
+    ``path_candidates`` (an array, or a list with one array per order)
+    become float32 (the candidates int64) tensors; keys that are missing
+    or None stay out, so the result can be passed on with ``**``.
+    """
+    if device is None:
+        device = torch.device("cuda")
+    out = {}
+    for key in ("tx", "eta_r", "conductivity", "thickness", "target_power"):
+        if fields.get(key) is not None:
+            out[key] = _tensor(fields[key], torch.float32, device)
+    candidates = fields.get("path_candidates")
+    if isinstance(candidates, (list, tuple)):
+        out["path_candidates"] = [_tensor(c, torch.int64, device) for c in candidates]
+    elif candidates is not None:
+        out["path_candidates"] = _tensor(candidates, torch.int64, device)
+    return out

@@ -120,16 +120,20 @@ def dispatch_ray_intersect_any_triangle(
     if mesh.num_triangles == 0:
         return torch.zeros(batch, dtype=torch.bool, device=ray_origins.device)
 
-    *rays, hit_threshold = anyhit_segments(
-        ray_origins, ray_directions, hit_tol=hit_tol, active_rays=active_rays
-    )
-    kw = {"hit_threshold": hit_threshold, "epsilon": epsilon}
-    if get_backend(ray_origins.device) == "cuda":
-        out = ray_intersect_any_triangle_cuda(*rays, None, None, bvh=mesh.bvh, **kw)
-    else:
-        out = ray_intersect_any_triangle_reference(
-            *rays, mesh.triangle_vertices.contiguous(), mesh.mask, **kw
+    # The result is boolean: rays that require a gradient (a TX being
+    # placed, vertices being fitted) are cut from the graph here, so that
+    # neither the kernel nor its plain version records anything.
+    with torch.no_grad():
+        *rays, hit_threshold = anyhit_segments(
+            ray_origins, ray_directions, hit_tol=hit_tol, active_rays=active_rays
         )
+        kw = {"hit_threshold": hit_threshold, "epsilon": epsilon}
+        if get_backend(ray_origins.device) == "cuda":
+            out = ray_intersect_any_triangle_cuda(*rays, None, None, bvh=mesh.bvh, **kw)
+        else:
+            out = ray_intersect_any_triangle_reference(
+                *rays, mesh.triangle_vertices.contiguous(), mesh.mask, **kw
+            )
     return out.reshape(batch)
 
 

@@ -14,8 +14,14 @@ warps walk the BVH (see the kernel's header note). The VMEM-driven tile
 pickers of the TPU kernel (``_pick_tile_t``, ``_pick_c_tile``) have no
 counterpart here.
 
-Gradients are not ported yet (ROADMAP A8): a CUDA input that requires a
-gradient raises instead of dropping it.
+Gradients: :func:`trace_specular_cuda` goes through a
+``torch.autograd.Function`` (the counterpart of the JAX package's custom
+VJP, ``_make_trace_specular``). Its forward is the kernel (the plain
+version for CPU tensors); its backward recomputes the vertices with
+:func:`trace_vertices`, plain PyTorch and op for op the kernel's geometry
+phase, and pulls the gradient through that to the TX, the RX and the
+mirrors. The mask is boolean and the blockage sweep takes no part in the
+backward.
 """
 
 import torch
@@ -35,34 +41,20 @@ REFERENCE_CALLS = 0
 """Calls of :func:`trace_specular_reference` in this process."""
 
 
-def trace_specular_reference(
+def _trace_geometry(
     tx_vertices: torch.Tensor,
     rx_vertices: torch.Tensor,
     mirror_vertices: torch.Tensor,
     mirror_normals: torch.Tensor,
-    candidate_triangles: torch.Tensor,
-    triangle_vertices: torch.Tensor,
-    active_triangles: torch.Tensor | None,
-    *,
-    order: int,
-    epsilon: float,
-    hit_tol: float,
-    min_len: float,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the fused trace kernel, with its exact contract.
+) -> tuple[list[torch.Tensor], torch.Tensor]:
+    """The kernel's geometry phase: the image method on ``[C, k, 3]`` mirrors.
 
-    Shapes: ``tx [Ntx, 3]``, ``rx [Nrx, 3]``, mirror vertices and normals
-    ``[C, k, 3]``, candidate triangles ``[C, tpm * k, 3, 3]`` (``tpm`` = 1,
-    or 2 for quads), mesh ``[T, 3, 3]`` and an optional ``[T]`` mask.
-    Returns vertices ``[Ntx, C, Nrx, k + 2, 3]`` and mask ``[Ntx, C, Nrx]``.
-    Like the kernel, invalid paths keep their raw, possibly non-finite,
-    vertices (the unfused pipeline zeroes them instead).
+    Returns the ``k + 2`` points of each path, each ``[Ntx, C, Nrx, 3]``,
+    and ``invalid``: the paths with a segment parallel to a mirror it
+    should cross. A parallel segment divides by 1, not by 0, so that
+    neither the values nor their gradients turn non-finite there.
     """
-    global REFERENCE_CALLS
-    REFERENCE_CALLS += 1
-    k = order
-    tpm = candidate_triangles.shape[1] // k
-
+    k = mirror_vertices.shape[1]
     # Forward pass: mirror images of each TX, [Ntx, C, 3].
     images = []
     img = tx_vertices[:, None, :]
@@ -93,6 +85,55 @@ def trace_specular_reference(
     chain = [tx_vertices[:, None, None, :].expand(shape)]
     chain += [p.expand(shape) for p in points]
     chain += [rx_vertices[None, None, :, :].expand(shape)]
+    return chain, invalid
+
+
+def trace_vertices(
+    tx_vertices: torch.Tensor,
+    rx_vertices: torch.Tensor,
+    mirror_vertices: torch.Tensor,
+    mirror_normals: torch.Tensor,
+) -> torch.Tensor:
+    """The vertices the trace kernel writes, ``[Ntx, C, Nrx, k + 2, 3]``, in plain PyTorch.
+
+    The differentiable recompute of the fused trace's backward (the JAX
+    package's ``_xla_trace_vertices``): the same arithmetic as the kernel,
+    which is built without fused multiply-adds so that the two agree.
+    """
+    chain, _ = _trace_geometry(tx_vertices, rx_vertices, mirror_vertices, mirror_normals)
+    return torch.stack(chain, dim=-2)
+
+
+def trace_specular_reference(
+    tx_vertices: torch.Tensor,
+    rx_vertices: torch.Tensor,
+    mirror_vertices: torch.Tensor,
+    mirror_normals: torch.Tensor,
+    candidate_triangles: torch.Tensor,
+    triangle_vertices: torch.Tensor,
+    active_triangles: torch.Tensor | None,
+    *,
+    order: int,
+    epsilon: float,
+    hit_tol: float,
+    min_len: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the fused trace kernel, with its exact contract.
+
+    Shapes: ``tx [Ntx, 3]``, ``rx [Nrx, 3]``, mirror vertices and normals
+    ``[C, k, 3]``, candidate triangles ``[C, tpm * k, 3, 3]`` (``tpm`` = 1,
+    or 2 for quads), mesh ``[T, 3, 3]`` and an optional ``[T]`` mask.
+    Returns vertices ``[Ntx, C, Nrx, k + 2, 3]`` and mask ``[Ntx, C, Nrx]``.
+    Like the kernel, invalid paths keep their raw, possibly non-finite,
+    vertices (the unfused pipeline zeroes them instead).
+    """
+    global REFERENCE_CALLS
+    REFERENCE_CALLS += 1
+    k = order
+    tpm = candidate_triangles.shape[1] // k
+
+    chain, invalid = _trace_geometry(tx_vertices, rx_vertices, mirror_vertices, mirror_normals)
+    shape = chain[0].shape
     vertices = torch.stack(chain, dim=-2)
 
     finite = ~invalid
@@ -166,8 +207,12 @@ def trace_specular_cuda(
     built here when not given, and with it the mesh's triangles may be
     None on CUDA. CPU tensors take the plain version; CUDA tensors launch
     the kernel (or raise); other devices raise.
+
+    The vertices are differentiable with respect to the TX, the RX and the
+    mirrors' vertices and normals (:class:`_TraceSpecular`); the candidate
+    triangles, the mesh and the mask carry no gradient.
     """
-    args = (
+    return _TraceSpecular.apply(
         tx_vertices,
         rx_vertices,
         mirror_vertices,
@@ -175,21 +220,75 @@ def trace_specular_cuda(
         candidate_triangles,
         triangle_vertices,
         active_triangles,
+        bvh,
+        order,
+        epsilon,
+        hit_tol,
+        min_len,
     )
-    device = tx_vertices.device
-    if device.type == "cpu":
-        return trace_specular_reference(
-            *args, order=order, epsilon=epsilon, hit_tol=hit_tol, min_len=min_len
+
+
+class _TraceSpecular(torch.autograd.Function):
+    """The fused trace with a backward (``_make_trace_specular`` of the JAX package).
+
+    The forward launches the kernel on CUDA tensors and runs the plain
+    version on CPU tensors, both outside the graph; only the TX, the RX
+    and the mirrors are saved. The backward zeroes the non-finite entries
+    of the incoming gradient (an invalid path's vertices may be
+    non-finite, and so may what a caller derived from them), recomputes
+    the vertices with :func:`trace_vertices` and differentiates that.
+    """
+
+    @staticmethod
+    def forward(
+        ctx, tx_vertices, rx_vertices, mirror_vertices, mirror_normals, candidate_triangles,
+        triangle_vertices, active_triangles, bvh, order, epsilon, hit_tol, min_len,
+    ):
+        args = (
+            tx_vertices,
+            rx_vertices,
+            mirror_vertices,
+            mirror_normals,
+            candidate_triangles,
+            triangle_vertices,
+            active_triangles,
         )
+        kw = {"order": order, "epsilon": epsilon, "hit_tol": hit_tol, "min_len": min_len}
+        if tx_vertices.device.type == "cpu":
+            vertices, mask = trace_specular_reference(*args, **kw)
+        else:
+            vertices, mask = _launch_checked(*args, **kw, bvh=bvh)
+        ctx.save_for_backward(tx_vertices, rx_vertices, mirror_vertices, mirror_normals)
+        ctx.mark_non_differentiable(mask)
+        return vertices, mask
+
+    @staticmethod
+    def backward(ctx, grad_vertices, grad_mask):
+        del grad_mask
+        grad_vertices = torch.where(torch.isfinite(grad_vertices), grad_vertices, 0.0)
+        needed = [i for i in range(4) if ctx.needs_input_grad[i]]
+        grads = [None] * 12
+        with torch.enable_grad():
+            inputs = [
+                x.detach().requires_grad_(i in needed) for i, x in enumerate(ctx.saved_tensors)
+            ]
+            vertices = trace_vertices(*inputs)
+            for i, g in zip(
+                needed, torch.autograd.grad(vertices, [inputs[i] for i in needed], grad_vertices)
+            ):
+                grads[i] = g
+        return tuple(grads)
+
+
+def _launch_checked(
+    tx_vertices, rx_vertices, mirror_vertices, mirror_normals, candidate_triangles,
+    triangle_vertices, active_triangles, *, order, epsilon, hit_tol, min_len, bvh,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Check the inputs, lay them out for the kernel and launch it once."""
+    device = tx_vertices.device
     if device.type != "cuda":
         msg = f"The trace kernel runs on CUDA tensors, not on {device}."
         raise ValueError(msg)
-    if any(x is not None and x.requires_grad for x in args):
-        msg = (
-            "Gradients through the fused trace kernel are not ported yet"
-            " (ROADMAP A8); trace under torch.no_grad() or detach the inputs."
-        )
-        raise NotImplementedError(msg)
     if not 1 <= order <= MAX_ORDER:
         msg = f"The trace kernel is compiled for orders 1 to {MAX_ORDER}, not {order}."
         raise ValueError(msg)

@@ -9,6 +9,7 @@ mirrors, vectorized over the batch.
 import torch
 
 from ..geometry._vectors import _dot
+from ..utils import smoothing_function
 
 
 def sign(x: torch.Tensor) -> torch.Tensor:
@@ -84,14 +85,21 @@ def consecutive_vertices_are_on_same_side_of_mirror(
     vertices: torch.Tensor,
     mirror_vertices: torch.Tensor,
     mirror_normals: torch.Tensor,
+    *,
+    smoothing_factor: float | None = None,
 ) -> torch.Tensor:
     """Whether the vertices around each mirror lie on the same side of it.
 
-    ``vertices [*, num_mirrors + 2, 3]``; returns ``[*, num_mirrors]`` bool.
+    ``vertices [*, num_mirrors + 2, 3]``; returns ``[*, num_mirrors]`` bool
+    or, with a ``smoothing_factor``, the confidence
+    ``sigmoid(sign * sign * smoothing_factor)`` (a constant of the inputs:
+    ``sign`` passes no gradient).
     """
     if vertices.shape[-2] != mirror_vertices.shape[-2] + 2:
         msg = "'vertices' must hold two more points than there are mirrors."
         raise TypeError(msg)
     dot_prev = _dot(vertices[..., :-2, :] - mirror_vertices, mirror_normals)
     dot_next = _dot(vertices[..., 2:, :] - mirror_vertices, mirror_normals)
+    if smoothing_factor is not None:
+        return smoothing_function(sign(dot_prev) * sign(dot_next), smoothing_factor)
     return sign(dot_prev) == sign(dot_next)

@@ -3,12 +3,17 @@
 These are the plain forms of the any-hit and closest-hit contracts: peak
 memory is bounded at ``batch * tile`` ray-triangle pairs by looping over
 triangle tiles. The kernels' plain versions (``ops/_rt.py``,
-``ops/_closest.py``) are built on them. Visibility is not ported yet
-(ROADMAP A10).
+``ops/_closest.py``) are built on them. With a ``smoothing_factor`` the
+any-hit scan returns a confidence through which gradients flow; it keeps a
+graph of every ray-triangle pair, so it is for small scenes. Visibility is
+not ported yet (ROADMAP A10).
 """
+
+from collections.abc import Callable
 
 import torch
 
+from ..utils import smoothing_function
 from ._triangle import F32_EPS, ray_intersect_triangle
 
 
@@ -38,8 +43,55 @@ def any_hit_below(
         )
         blocked = (t < threshold) & hit
         if active_triangles is not None:
-            blocked = blocked & active_triangles[lo : lo + tile]
+            blocked = blocked & active_triangles[..., lo : lo + tile]
         out |= blocked.any(dim=-1)
+    return out
+
+
+def smoothed_any_hit(
+    ray_origins: torch.Tensor,
+    ray_directions: torch.Tensor,
+    triangle_vertices: torch.Tensor,
+    active_tile: Callable[[int, int], torch.Tensor | None],
+    hit_threshold: torch.Tensor,
+    *,
+    smoothing_factor,
+    epsilon: float | None = None,
+    tile: int | None = 512,
+) -> torch.Tensor:
+    """Confidence in [0, 1] that each ray is blocked before ``hit_threshold``.
+
+    A triangle's confidence is ``minimum(hit, sigmoid((hit_threshold - t) *
+    smoothing_factor))``; they are summed over the active triangles of each
+    tile, and the tiles combined by ``minimum(left + right, 1)``.
+    ``active_tile(lo, hi)`` gives the bool mask ``[*batch, hi - lo]`` of
+    triangles ``lo`` to ``hi`` (or None: all active), so that a caller can
+    make a mask that depends on the ray one tile at a time.
+
+    ``torch.minimum`` halves the gradient on a tie, as ``jnp.minimum`` and
+    ``jnp.clip`` do (``torch.clamp`` would pass all of it).
+    """
+    batch = torch.broadcast_shapes(ray_origins.shape[:-1], ray_directions.shape[:-1])
+    out = torch.zeros(batch, dtype=ray_origins.dtype, device=ray_origins.device)
+    one = out.new_tensor(1.0)
+    origins = ray_origins[..., None, :]
+    directions = ray_directions[..., None, :]
+    num_triangles = triangle_vertices.shape[0]
+    tile = num_triangles if tile is None else min(tile, num_triangles)
+    for lo in range(0, num_triangles, max(tile, 1)):
+        hi = min(lo + tile, num_triangles)
+        t, hit = ray_intersect_triangle(
+            origins,
+            directions,
+            triangle_vertices[lo:hi],
+            epsilon=epsilon,
+            smoothing_factor=smoothing_factor,
+        )
+        conf = torch.minimum(hit, smoothing_function(hit_threshold - t, smoothing_factor))
+        active = active_tile(lo, hi)
+        if active is not None:
+            conf = torch.where(active, conf, 0.0)
+        out = torch.minimum(out + conf.sum(dim=-1), one)
     return out
 
 
@@ -51,14 +103,17 @@ def ray_intersect_any_triangle(
     *,
     hit_tol: float | None = None,
     epsilon: float | None = None,
+    smoothing_factor: float | None = None,
     batch_size: int | None = 512,
 ) -> torch.Tensor:
     """Whether each ray hits any (active) triangle before ``t = 1 - hit_tol``.
 
     Rays broadcast over ``[*batch, 3]``; ``triangle_vertices`` is
-    ``[num_triangles, 3, 3]``, tested ``batch_size`` at a time. ``hit_tol``
-    defaults to ``100 * eps(float32)``. Hard only: the smoothed sum is
-    ROADMAP A5.
+    ``[num_triangles, 3, 3]``, tested ``batch_size`` at a time, and
+    ``active_triangles`` ``[num_triangles]`` or ``[*batch, num_triangles]``.
+    ``hit_tol`` defaults to ``100 * eps(float32)``. With a
+    ``smoothing_factor`` the result is a float confidence: the clipped sum
+    of the triangles' confidences (:func:`smoothed_any_hit`).
 
     >>> import torch
     >>> wall = torch.tensor([[[0.0, -9.0, -9.0], [0.0, 9.0, -9.0], [0.0, 0.0, 9.0]]])
@@ -73,6 +128,17 @@ def ray_intersect_any_triangle(
     hit_threshold = 1.0 - torch.as_tensor(
         hit_tol, dtype=torch.float32, device=ray_origins.device
     )
+    if smoothing_factor is not None:
+        return smoothed_any_hit(
+            ray_origins,
+            ray_directions,
+            triangle_vertices,
+            lambda lo, hi: None if active_triangles is None else active_triangles[..., lo:hi],
+            hit_threshold,
+            smoothing_factor=smoothing_factor,
+            epsilon=epsilon,
+            tile=batch_size,
+        )
     num_triangles = triangle_vertices.shape[0]
     tile = num_triangles if batch_size is None else min(batch_size, num_triangles)
     return any_hit_below(

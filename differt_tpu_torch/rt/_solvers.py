@@ -3,9 +3,11 @@
 Exhaustive tracing: candidates are decoded from the closed-form index
 mapping; each batch of candidates goes through the image method, four
 geometric checks and the blockage test. On CUDA tensors with ``order >= 1``
-the whole pipeline runs in the fused trace kernel; otherwise it runs
+and hard masks the whole pipeline runs in the fused trace kernel
+(differentiable through its recompute backward); otherwise it runs
 unfused, with its blockage test on the any-hit kernel (CUDA) or its plain
-version (CPU). Hard masks only.
+version (CPU). With a ``smoothing_factor`` every check becomes a sigmoid
+confidence and the pipeline is plain PyTorch throughout.
 
 Ray launching (:class:`SBRPathLauncher`): a Fibonacci lattice of rays per
 transmitter, bounced ``order + 1`` times through the closest-hit kernel
@@ -23,7 +25,9 @@ from ..geometry._lattice import fibonacci_lattice, viewing_frustum
 from ..geometry._mesh import Mesh
 from ..geometry._paths import LaunchedPaths, TracedPaths
 from ..geometry._vectors import _cross, _dot, assemble_path
+from ..utils import max_with_initial, min_with_initial, smoothing_function
 from ._image_method import consecutive_vertices_are_on_same_side_of_mirror, image_method
+from ._scan import smoothed_any_hit
 from ._triangle import F32_EPS, ray_intersect_triangle
 
 
@@ -59,6 +63,9 @@ def trace_path_candidates(
     epsilon: float | None = None,
     hit_tol: float | None = None,
     min_len: float | None = None,
+    smoothing_factor: float | None = None,
+    confidence_threshold: float = 0.5,
+    batch_size: int | None = 512,
     megakernel: bool | None = None,
 ) -> TracedPaths:
     """Trace and validate exact specular paths for a batch of candidates.
@@ -66,13 +73,22 @@ def trace_path_candidates(
     ``tx_vertices [Ntx, 3]``, ``rx_vertices [Nrx, 3]``, ``path_candidates
     [C, order]`` primitive indices. Returns paths of batch shape
     ``[Ntx, Nrx, C]``. ``megakernel=None`` picks the fused trace kernel when
-    the backend resolves to ``"cuda"`` (by default: CUDA tensors) and
-    ``order >= 1``; ``False`` forces the unfused
+    the backend resolves to ``"cuda"`` (by default: CUDA tensors),
+    ``order >= 1`` and the masks are hard; ``False`` forces the unfused
     pipeline; ``True`` forces the fused kernel's contract (its plain version
-    on CPU). Validity masks are hard; the smoothed checks are ROADMAP A5.
+    on CPU).
+
+    With a ``smoothing_factor`` each of the five checks is a sigmoid
+    confidence and the mask their minimum, a float held against
+    ``confidence_threshold``: gradients then flow through whether a path
+    exists. The smoothed blockage sums every triangle's confidence
+    (``batch_size`` triangles at a time) but each segment's own mirrors: a
+    sigmoid in ``t`` cannot resolve the ``hit_tol`` offset that keeps the
+    hard test off them, and would count them as half-blockers.
     """
     if min_len is None:
         min_len = 10.0 * F32_EPS
+    smooth = smoothing_factor is not None
 
     num_tx = tx_vertices.shape[0]
     num_rx = rx_vertices.shape[0]
@@ -89,11 +105,17 @@ def trace_path_candidates(
         from ..ops import get_backend
 
         megakernel = (
-            get_backend(tx_vertices.device) == "cuda" and order >= 1 and num_candidates > 0
+            get_backend(tx_vertices.device) == "cuda"
+            and not smooth
+            and order >= 1
+            and num_candidates > 0
         )
     if megakernel:
         if order < 1:
             msg = "The fused trace kernel needs order >= 1."
+            raise ValueError(msg)
+        if smooth:
+            msg = "The fused trace kernel has hard masks only: drop 'smoothing_factor' or 'megakernel'."
             raise ValueError(msg)
         from ..ops._trace import trace_specular_cuda
 
@@ -121,7 +143,64 @@ def trace_path_candidates(
             mask = mask & active_rays
         return _assemble_traced_paths(
             full_paths, mask, path_candidates, interaction_types, k,
-            num_tx, num_rx, num_candidates, order,
+            num_tx, num_rx, num_candidates, order, confidence_threshold,
+        )
+
+    if smooth:
+        full_paths, ray_origins, ray_directions, checks = _geometric_checks(
+            tx_vertices,
+            rx_vertices,
+            triangle_vertices,
+            mirror_vertices,
+            mirror_normals,
+            k,
+            epsilon=epsilon,
+            min_len=min_len,
+            smoothing_factor=smoothing_factor,
+        )
+        inside, valid_reflections, too_small, is_finite = checks
+        # Check 3, smoothed, without each segment's own mirrors. The mask
+        # of a triangle tile is made inside the scan: [C, order + 1, tile],
+        # never [C, order + 1, T].
+        endpoint_ids = _segment_endpoint_ids(path_candidates, order, k)
+        mesh_tv = mesh.triangle_vertices
+        if hit_tol is None:
+            hit_tol = 100.0 * F32_EPS
+
+        def active_tile(lo: int, hi: int) -> torch.Tensor:
+            active = ~own_mirror_tile(endpoint_ids, lo, hi)
+            return active if mesh.mask is None else active & mesh.mask[lo:hi]
+
+        blocked = smoothed_any_hit(
+            ray_origins,
+            ray_directions,
+            mesh_tv,
+            active_tile,
+            1.0 - torch.as_tensor(hit_tol, dtype=mesh_tv.dtype, device=mesh_tv.device),
+            smoothing_factor=smoothing_factor,
+            epsilon=epsilon,
+            tile=batch_size,
+        )
+        blocked = max_with_initial(blocked, -1, 0.0)
+        mask = min_with_initial(
+            torch.stack(
+                (
+                    inside,
+                    valid_reflections,
+                    1.0 - blocked,
+                    1.0 - too_small,
+                    is_finite.to(inside.dtype),
+                ),
+                dim=-1,
+            ),
+            -1,
+            1.0,
+        )
+        if active_rays is not None:
+            mask = mask * active_rays
+        return _assemble_traced_paths(
+            full_paths, mask, path_candidates, interaction_types, k,
+            num_tx, num_rx, num_candidates, order, confidence_threshold,
         )
 
     full_paths, ray_origins, ray_directions, alive = unfused_blockage_inputs(
@@ -149,8 +228,28 @@ def trace_path_candidates(
         mask = mask & active_rays
     return _assemble_traced_paths(
         full_paths, mask, path_candidates, interaction_types, k,
-        num_tx, num_rx, num_candidates, order,
+        num_tx, num_rx, num_candidates, order, confidence_threshold,
     )
+
+
+def _segment_endpoint_ids(path_candidates: torch.Tensor, order: int, k: int) -> torch.Tensor:
+    """The triangles each segment starts and ends on, ``[C, order + 1, 2 * k]`` (-1: none).
+
+    ``path_candidates [C, k * order]`` holds the ``k`` triangles of each
+    mirror (:func:`candidate_geometry`); segment ``s`` leaves mirror
+    ``s - 1`` and reaches mirror ``s``, the TX and the RX being no triangle.
+    """
+    pc = path_candidates.reshape(path_candidates.shape[0], order, k)
+    none = torch.full((pc.shape[0], 1, k), -1, dtype=pc.dtype, device=pc.device)
+    seg_start = torch.cat((none, pc), dim=1)
+    seg_end = torch.cat((pc, none), dim=1)
+    return torch.cat((seg_start, seg_end), dim=-1)
+
+
+def own_mirror_tile(endpoint_ids: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """``[C, order + 1, hi - lo]``: whether triangle ``lo + j`` is a mirror of segment ``s``'s ends."""
+    tri_ids = torch.arange(lo, hi, dtype=endpoint_ids.dtype, device=endpoint_ids.device)
+    return (endpoint_ids[..., None] == tri_ids).any(dim=-2)
 
 
 def unfused_blockage_inputs(
@@ -173,8 +272,47 @@ def unfused_blockage_inputs(
     + 1, 3]`` and ``alive`` ``[Ntx, Nrx, C]``: the paths that passed the
     checks, whose segments take the blockage test.
     """
+    full_paths, ray_origins, ray_directions, checks = _geometric_checks(
+        tx_vertices,
+        rx_vertices,
+        triangle_vertices,
+        mirror_vertices,
+        mirror_normals,
+        k,
+        epsilon=epsilon,
+        min_len=min_len,
+    )
+    inside, valid_reflections, too_small, is_finite = checks
+    alive = inside & valid_reflections & ~too_small & is_finite
+    return full_paths, ray_origins, ray_directions, alive
+
+
+def _geometric_checks(
+    tx_vertices: torch.Tensor,
+    rx_vertices: torch.Tensor,
+    triangle_vertices: torch.Tensor,
+    mirror_vertices: torch.Tensor,
+    mirror_normals: torch.Tensor,
+    k: int,
+    *,
+    epsilon: float | None,
+    min_len: float,
+    smoothing_factor: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, tuple[torch.Tensor, ...]]:
+    """The image method and checks 1, 2, 4 and 5, hard or smoothed.
+
+    Returns the paths (impossible ones zeroed), their segments' origins and
+    directions, and ``(inside, valid_reflections, too_small, is_finite)``,
+    each ``[Ntx, Nrx, C]``: bool, or with a ``smoothing_factor`` float
+    confidences (``is_finite`` stays bool).
+
+    The smoothed reductions are ``amin``/``amax``, which split the gradient
+    evenly among ties as ``jnp.min``/``jnp.max`` do: on a symmetric scene
+    the confidences tie exactly.
+    """
     num_tx, num_rx = tx_vertices.shape[0], rx_vertices.shape[0]
     num_candidates, order = mirror_vertices.shape[:2]
+    smooth = smoothing_factor is not None
     paths = image_method(
         tx_vertices[:, None, None, :],
         rx_vertices[None, :, None, :],
@@ -194,23 +332,32 @@ def unfused_blockage_inputs(
         torch.repeat_interleave(ray_directions[..., :-1, :], k, dim=-2),
         triangle_vertices,
         epsilon=epsilon,
-    )[1]
-    inside = hits.reshape(num_tx, num_rx, num_candidates, order, k).any(dim=-1).all(dim=-1)
+        smoothing_factor=smoothing_factor,
+    )[1].reshape(num_tx, num_rx, num_candidates, order, k)
+    if smooth:
+        inside = min_with_initial(max_with_initial(hits, -1, 0.0), -1, 1.0)
+    else:
+        inside = hits.any(dim=-1).all(dim=-1)
 
     # Check 2: consecutive vertices on the same side of each mirror.
-    valid_reflections = consecutive_vertices_are_on_same_side_of_mirror(
-        full_paths, mirror_vertices, mirror_normals
-    ).all(dim=-1)
+    same_side = consecutive_vertices_are_on_same_side_of_mirror(
+        full_paths, mirror_vertices, mirror_normals, smoothing_factor=smoothing_factor
+    )
+    valid_reflections = min_with_initial(same_side, -1, 1.0) if smooth else same_side.all(dim=-1)
 
     # Check 4: no degenerate (too short) segment.
-    too_small = (_dot(ray_directions, ray_directions) < min_len).any(dim=-1)
+    seg_sq = _dot(ray_directions, ray_directions)
+    if smooth:
+        too_small = max_with_initial(
+            smoothing_function(min_len - seg_sq, smoothing_factor), -1, 0.0
+        )
+    else:
+        too_small = (seg_sq < min_len).any(dim=-1)
 
     # Check 5: finiteness (the image method emits inf for impossible paths).
     is_finite = torch.isfinite(full_paths).all(dim=-1).all(dim=-1)
     full_paths = torch.where(is_finite[..., None, None], full_paths, 0.0)
-
-    alive = inside & valid_reflections & ~too_small & is_finite
-    return full_paths, ray_origins, ray_directions, alive
+    return full_paths, ray_origins, ray_directions, (inside, valid_reflections, too_small, is_finite)
 
 
 def _assemble_traced_paths(
@@ -223,6 +370,7 @@ def _assemble_traced_paths(
     num_rx: int,
     num_candidates: int,
     order: int,
+    confidence_threshold: float = 0.5,
 ) -> TracedPaths:
     """Attach object indices and interaction types to traced geometry."""
     device = path_candidates.device
@@ -247,12 +395,13 @@ def _assemble_traced_paths(
         objects,
         mask=mask,
         interaction_types=out_types,
+        confidence_threshold=confidence_threshold,
     )
 
 
 @dataclasses.dataclass(frozen=True)
 class ExhaustivePathTracer:
-    """Exhaustive image-method tracer over all candidates (hard masks)."""
+    """Exhaustive image-method tracer over all candidates, with hard or smoothed checks."""
 
     epsilon: float | None = None
     """Tolerance for ray / object intersection checks."""
@@ -260,8 +409,14 @@ class ExhaustivePathTracer:
     """Hit-distance tolerance when testing path segments for blockage."""
     min_len: float | None = None
     """Minimal (squared) segment length for a valid path."""
+    smoothing_factor: float | None = None
+    """Slope of the sigmoids that replace the hard checks (None: hard checks)."""
+    confidence_threshold: float = 0.5
+    """Confidence from which a path with a smoothed mask counts as valid."""
+    batch_size: int | None = 512
+    """Triangle tile of the smoothed blockage sum."""
     megakernel: bool | None = None
-    """Force the fused trace kernel on or off (None: on for the "cuda" backend, order >= 1)."""
+    """Force the fused trace kernel on or off (None: on for the "cuda" backend, order >= 1, hard checks)."""
 
     def generate_path_candidates(
         self, scene, order: int
@@ -287,6 +442,9 @@ class ExhaustivePathTracer:
             epsilon=self.epsilon,
             hit_tol=self.hit_tol,
             min_len=self.min_len,
+            smoothing_factor=self.smoothing_factor,
+            confidence_threshold=self.confidence_threshold,
+            batch_size=self.batch_size,
             megakernel=self.megakernel,
         )
 

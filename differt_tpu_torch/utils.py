@@ -22,6 +22,45 @@ def safe_divide(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
     return torch.where(zero, torch.zeros_like(out), out)
 
 
+def smoothing_function(x: torch.Tensor, smoothing_factor=1.0) -> torch.Tensor:
+    """Smooth approximation of the Heaviside step: ``sigmoid(x * smoothing_factor)``.
+
+    The relaxation that turns a hard validity test into a confidence in
+    [0, 1] through which gradients flow.
+
+    >>> import torch
+    >>> float(smoothing_function(torch.tensor(0.0)))
+    0.5
+    >>> bool(smoothing_function(torch.tensor(4.0), 10.0) > 0.99)
+    True
+    """
+    return torch.sigmoid(torch.as_tensor(x) * smoothing_factor)
+
+
+def min_with_initial(x: torch.Tensor, dim: int, initial: float = 1.0) -> torch.Tensor:
+    """``jnp.min(x, axis=dim, initial=initial)``, with JAX's gradient at ties.
+
+    ``amin`` splits the gradient evenly among equal minima, as
+    ``jnp.min`` does (``torch.min(dim=...)`` would send it to one index),
+    and ``torch.minimum`` halves it on a tie with ``initial``, as
+    ``lax.min`` does. An empty axis (order 0) gives ``initial``.
+    """
+    if x.shape[dim] == 0:
+        shape = list(x.shape)
+        del shape[dim]
+        return x.new_full(shape, initial)
+    return torch.minimum(x.amin(dim=dim), x.new_tensor(initial))
+
+
+def max_with_initial(x: torch.Tensor, dim: int, initial: float = 0.0) -> torch.Tensor:
+    """``jnp.max(x, axis=dim, initial=initial)``; see :func:`min_with_initial`."""
+    if x.shape[dim] == 0:
+        shape = list(x.shape)
+        del shape[dim]
+        return x.new_full(shape, initial)
+    return torch.maximum(x.amax(dim=dim), x.new_tensor(initial))
+
+
 def dot3(a, b):
     """Dot product of component-tuple 3-vectors."""
     return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
@@ -37,10 +76,18 @@ def cross3(a, b):
 
 
 def normalize3(a):
-    """Zero-safe normalize of a component tuple; returns ``(unit, length)``."""
-    n = torch.sqrt(dot3(a, a))
-    safe = torch.where(n == 0.0, torch.ones_like(n), n)
-    return tuple(comp / safe for comp in a), n
+    """Zero-safe normalize of a component tuple; returns ``(unit, length)``.
+
+    The square root sees 1 where the vector is zero (``sq + zero`` adds the
+    bool), so that its backward is finite there and not ``0 * inf``: a zero
+    cross product (a ray along a face's normal) would otherwise send NaN
+    to the mesh's vertices. Same values, and as many kernels, as
+    ``a / where(n == 0, 1, n)``.
+    """
+    sq = dot3(a, a)
+    zero = sq == 0.0
+    n = torch.sqrt(sq + zero)
+    return tuple(comp / n for comp in a), torch.where(zero, sq, n)
 
 
 def spherical3(k):
@@ -86,7 +133,11 @@ def sp_directions3(k_i, k_r, normal):
 def gather_columns(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Row-gather from a ``[T, C]`` table, returned as ``[C, *idx.shape]``.
 
-    Plain indexing: the JAX package's one-hot matmul form exists only for
-    the TPU's matrix unit.
+    A plain gather: the JAX package's one-hot matmul form exists only for
+    the TPU's matrix unit. It is written as an embedding lookup, whose
+    values are those of ``table[idx]`` and whose backward sorts the indices
+    and reduces each row's run: a coverage tile repeats each of its few
+    hundred candidate rows tens of thousands of times, and the backward of
+    ``table[idx]`` adds those up one by one.
     """
-    return torch.movedim(table[idx], -1, 0)
+    return torch.movedim(torch.nn.functional.embedding(idx, table), -1, 0)

@@ -153,6 +153,7 @@ def test_interop_round_trip() -> None:
         "differt_tpu_torch.ops._bvh",
         "differt_tpu_torch.ops._dispatch",
         "differt_tpu_torch.coverage",
+        "differt_tpu_torch.parallel._sharding",
         "differt_tpu_torch.scenes",
     ],
 )

@@ -7,6 +7,8 @@ This file imports no JAX, so that it runs on a GPU host without it:
 Here (no CUDA device) every test skips.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -14,7 +16,7 @@ import torch
 from differt_tpu_torch import ops, scenes
 from differt_tpu_torch.geometry import Scene, fibonacci_lattice, generate_path_candidates
 from differt_tpu_torch.ops import _build, _bvh, _closest, _rt, _trace
-from differt_tpu_torch.rt import ray_intersect_triangle
+from differt_tpu_torch.rt import ray_intersect_triangle, trace_path_candidates
 from differt_tpu_torch.rt._solvers import candidate_geometry
 
 from .torch_parity import EPSILON, HIT_TOL, cuda_or_skip, random_segments, triangle_mask
@@ -155,9 +157,138 @@ def test_trace_kernel_matches_reference(order: int, quads: bool) -> None:
     assert torch.equal(mask5, mask)
     torch.testing.assert_close(verts5, verts, rtol=0, atol=0, equal_nan=True)
 
-    leaf = args[0].clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="A8"):
-        _trace.trace_specular_cuda(leaf, *args[1:], **kw)
+    # The recompute of the backward gives the kernel's own vertices (the
+    # kernel is built without fused multiply-adds for this).
+    recomputed = _trace.trace_vertices(*args[:4])
+    torch.testing.assert_close(recomputed[mask], verts[mask], atol=1e-4, rtol=0)
+
+
+def _length_gradients(scene: Scene, order: int, megakernel):
+    """Gradients of the valid paths' total length to the TX, the RX and the mesh's vertices."""
+    tx = scene.transmitters.reshape(-1, 3).clone().requires_grad_()
+    rx = scene.receivers.reshape(-1, 3).clone().requires_grad_()
+    vertices = scene.mesh.vertices.clone().requires_grad_()
+    mesh = dataclasses.replace(scene.mesh, vertices=vertices)
+    candidates = generate_path_candidates(mesh.num_primitives, order, device=tx.device)
+    if mesh.assume_quads:
+        candidates = 2 * candidates
+    paths = trace_path_candidates(mesh, tx, rx, candidates, megakernel=megakernel)
+    seg = paths.vertices[..., 1:, :] - paths.vertices[..., :-1, :]
+    lengths = torch.sqrt((seg * seg).sum(dim=-1) + 1e-12).sum(dim=-1)
+    total = torch.where(paths.mask, lengths, 0.0).sum()
+    return total, torch.autograd.grad(total, (tx, rx, vertices)), paths
+
+
+@pytest.mark.parametrize(("order", "quads"), [(1, False), (2, False), (2, True)])
+def test_trace_function_gradients_on_the_card(order: int, quads: bool, torch_backend) -> None:
+    # The canyon's walls are parallel mirrors: at order 2 some candidates'
+    # paths are impossible, and none of that may reach a gradient.
+    device = cuda_or_skip()
+    mesh = scenes.street_canyon_scene(device=device).mesh.set_assume_quads(quads)
+    scene = Scene(
+        transmitters=torch.tensor([[-30.0, 0.5, 20.0], [10.0, 3.0, 5.0]], device=device),
+        mesh=mesh,
+    ).with_receivers_grid(16, 16)
+    launches, calls = _trace.LAUNCHES, _trace.REFERENCE_CALLS
+    total, fused, paths = _length_gradients(scene, order, None)
+    torch.cuda.synchronize()
+    assert (_trace.LAUNCHES, _trace.REFERENCE_CALLS) == (launches + 1, calls)
+    assert paths.num_valid_paths > 0 and not paths.mask.requires_grad
+    torch_backend()  # the plain, unfused pipeline with direct autograd
+    want_total, unfused, want_paths = _length_gradients(scene, order, None)
+    assert _trace.LAUNCHES == launches + 1
+    assert torch.equal(paths.mask, want_paths.mask)
+    torch.testing.assert_close(total, want_total, rtol=1e-5, atol=0)
+    for got, want in zip(fused, unfused):
+        assert torch.isfinite(got).all() and got.abs().max() > 0
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+def test_unfused_pipeline_takes_a_tx_that_requires_a_gradient() -> None:
+    device = cuda_or_skip()
+    scene = Scene(
+        transmitters=torch.tensor([[-30.0, 0.5, 20.0]], device=device),
+        mesh=scenes.street_canyon_scene(device=device).mesh,
+    ).with_receivers_grid(8, 8)
+    launches, calls = _rt.LAUNCHES, _rt.REFERENCE_CALLS
+    _, grads, paths = _length_gradients(scene, 1, False)
+    torch.cuda.synchronize()
+    assert (_rt.LAUNCHES, _rt.REFERENCE_CALLS) == (launches + 1, calls)
+    assert paths.mask.dtype == torch.bool and paths.num_valid_paths > 0
+    assert all(torch.isfinite(g).all() for g in grads)
+
+
+def test_streamed_placement_step_on_the_card(torch_backend) -> None:
+    from differt_tpu_torch.parallel import streamed_placement_step
+
+    device = cuda_or_skip()
+    scene = Scene(
+        transmitters=torch.tensor([[-30.0, 0.5, 20.0], [12.0, -2.0, 6.0]], device=device),
+        mesh=scenes.street_canyon_scene(device=device).mesh.set_materials("Concrete"),
+    ).with_receivers_grid(12, 10)
+    num = scene.mesh.num_primitives
+    kw = {
+        "tx": scene.transmitters,
+        "eta_r": torch.tensor([5.24], device=device),
+        "conductivity": torch.tensor([0.1], device=device),
+        "path_candidates": [
+            generate_path_candidates(num, order, device=device) for order in (1, 2)
+        ],
+        "candidate_chunk": 64,
+        "rx_chunk": 50,
+        "tx_learning_rate": 1.0,
+        "eta_learning_rate": 1.0,
+    }
+    tiles = 3 * (-(-num // 64) + -(-(num * (num - 1)) // 64))
+    launches, calls, builds = _trace.LAUNCHES, _trace.REFERENCE_CALLS, _bvh.BUILDS
+    got = streamed_placement_step(scene, 2.4e9, **kw)
+    torch.cuda.synchronize()
+    # Each tile is traced in pass 1 and again in pass 3; the mesh's BVH is built once.
+    assert _trace.LAUNCHES == launches + 2 * tiles
+    assert (_trace.REFERENCE_CALLS, _bvh.BUILDS) == (calls, builds + 1)
+    torch_backend()
+    want = streamed_placement_step(scene, 2.4e9, **kw)
+    assert _trace.LAUNCHES == launches + 2 * tiles
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+    for new, ref, start in zip(got, want, (kw["tx"], kw["eta_r"])):
+        g, w = start - new, start - ref
+        assert torch.isfinite(g).all() and g.abs().max() > 0
+        torch.testing.assert_close(g, w, rtol=2e-3, atol=2e-3 * float(w.abs().max()))
+
+
+def test_smoothed_trace_on_the_card_is_plain_pytorch() -> None:
+    device = cuda_or_skip()
+    scene = Scene(
+        transmitters=torch.tensor([[-30.0, 0.5, 20.0]], device=device),
+        mesh=scenes.street_canyon_scene(device=device).mesh,
+    ).with_receivers_grid(8, 8)
+    counts = (_trace.LAUNCHES, _rt.LAUNCHES)
+    tx = scene.transmitters.clone().requires_grad_()
+    candidates = generate_path_candidates(scene.mesh.num_primitives, 1, device=device)
+    paths = trace_path_candidates(
+        scene.mesh, tx, scene.receivers.reshape(-1, 3), candidates, smoothing_factor=50.0
+    )
+    assert (_trace.LAUNCHES, _rt.LAUNCHES) == counts  # megakernel=None: unfused, no kernel
+    assert paths.mask.dtype == torch.float32 and float(paths.mask.detach().max()) > 0.9
+    (grad,) = torch.autograd.grad(paths.mask.sum(), tx)
+    assert torch.isfinite(grad).all() and grad.abs().max() > 0
+    cpu = trace_path_candidates(
+        _mesh_on_cpu(scene.mesh), tx.detach().cpu(),
+        scene.receivers.reshape(-1, 3).cpu(), candidates.cpu(), smoothing_factor=50.0,
+    )
+    torch.testing.assert_close(paths.mask.detach().cpu(), cpu.mask, rtol=0, atol=1e-4)
+
+
+def _mesh_on_cpu(mesh):
+    """A copy of ``mesh`` on the CPU."""
+    return dataclasses.replace(
+        mesh,
+        **{
+            f.name: getattr(mesh, f.name).cpu()
+            for f in dataclasses.fields(mesh)
+            if f.init and isinstance(getattr(mesh, f.name), torch.Tensor)
+        },
+    )
 
 
 @pytest.mark.parametrize(("num_tx", "grid"), [(70_000, 0), (1, 1_500)])

@@ -11,7 +11,8 @@ import torch
 torch.set_num_threads(1)
 import differt_tpu_torch
 from differt_tpu_torch.coverage import power_map
-from differt_tpu_torch.geometry import Scene
+from differt_tpu_torch.geometry import Scene, generate_path_candidates
+from differt_tpu_torch.parallel import placement_training_step, streamed_placement_step
 from differt_tpu_torch.scenes import street_canyon_scene
 
 scene = Scene(
@@ -24,6 +25,17 @@ paths = scene.launch_paths(order=2, num_rays=2000, max_dist=4.0)
 assert paths.masks.shape == (1, 8, 8, 2000, 3) and bool(paths.masks.any())
 mlm = scene.compute_tx_mlm(num_rays=2000, order=2, grid_size=(16, 16), receiver_plane_z=1.5)
 assert mlm.shape == (1, 16, 16) and len(torch.unique(mlm)) > 3
+candidates = [generate_path_candidates(scene.mesh.num_triangles, o, device="cpu")[:40] for o in (1, 2)]
+tx0 = scene.transmitters
+materials = {"eta_r": torch.tensor([5.24]), "conductivity": torch.tensor([0.1])}
+for smoothing_factor in (None, 50.0):
+    tx, eta, loss = streamed_placement_step(
+        scene, 2.4e9, tx=tx0, path_candidates=candidates, candidate_chunk=16, rx_chunk=24,
+        smoothing_factor=smoothing_factor, **materials,
+    )
+    assert bool(torch.isfinite(loss)) and bool((tx != tx0).any()) and bool(torch.isfinite(tx).all())
+tx, eta, loss = placement_training_step(scene, 2.4e9, order=1, tx=tx0, **materials)
+assert bool(torch.isfinite(loss)) and bool((tx != tx0).any()) and bool((eta != 5.24).all())
 assert not any(name == "jax" or name.startswith(("jax.", "differt_tpu.")) for name in sys.modules if sys.modules[name] is not None)
 print("ok")
 """

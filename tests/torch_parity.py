@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from differt_tpu_torch.interop import scene_from_numpy
+from differt_tpu_torch.interop import placement_from_numpy, scene_from_numpy
 
 F32_EPS = float(np.finfo(np.float32).eps)
 EPSILON = 10.0 * F32_EPS
@@ -41,6 +41,25 @@ def jax_scene_fields(scene) -> dict:
 def to_torch_scene(scene, device: str = "cpu"):
     """Carry a JAX scene across to the port."""
     return scene_from_numpy(jax_scene_fields(scene), device=device)
+
+
+def placement_for(module, fields: dict, device: str = "cpu") -> dict:
+    """A placement problem's numpy arrays as keyword arguments for one package.
+
+    ``module`` is ``torch`` (through ``interop.placement_from_numpy``) or
+    ``jax.numpy``; both get the same arrays, so both compute the same loss.
+    """
+    if module is torch:
+        return placement_from_numpy(fields, device=device)
+    out = {}
+    for key, value in fields.items():
+        if value is None:
+            continue
+        if isinstance(value, (list, tuple)):
+            out[key] = [module.asarray(v) for v in value]
+        else:
+            out[key] = module.asarray(value)
+    return out
 
 
 def assert_maps_close(port, ref, *, window_db: float = 40.0, tol_db: float = 0.1) -> None:
