@@ -26,6 +26,17 @@ version, and drives three paths, each counted from zero:
   deep as one warm step stays under a minute; anchored as ``scaling.py``
   anchors it (streamed against direct autograd, a finite difference on the
   permittivity), and at canyon size with smoothed masks;
+- visibility (phase 14): ``Mesh.triangles_visible_from_vertex`` from the
+  coverage path's TX and its 128 receivers, 1,000,000 lattice rays each,
+  through the closest-hit kernel, the hits of the TX's and 8 receivers'
+  rays held against the plain closest hit;
+- the hybrid tracer (phase 15): ``HybridPathTracer(num_rays=1_000_000)``
+  candidates at orders 1 and 2 (visibility, then the host DFS of
+  ``differt_tpu_torch.native``, built with g++), and
+  ``power_map_chunked(solver=...)`` through the fused trace kernel, held
+  against the exhaustive order-1 map;
+- antenna patterns (phase 16): the coverage path's call with a half-wave
+  dipole at the TX, against the plain versions and the pattern's gain;
 
 and checks that each path call went through its kernels, never through
 their plain versions, and built its mesh's BVH once. Then it profiles
@@ -73,6 +84,9 @@ GRAD_ETA, GRAD_SIGMA = (3.91, 5.24), (0.024, 0.123)
 GRAD_GRIDS = (256, 512, 1024)  # the depth: the largest whose warm step stays under STEP_LIMIT_S
 STEP_LIMIT_S = 60.0
 SMOOTHING = 50.0
+VIS_RAYS = 1_000_000  # the reference's default num_rays, for visibility and the hybrid tracer
+VIS_CHECKED_RX = 8  # receivers whose rays phase 14 holds against the plain closest hit, beside the TX
+HW_DIPOLE_GAIN = 1.640922376984585  # 4 / Cin(2 pi), the half-wave dipole pattern's peak
 
 
 def cuda_ms(fn, repeats: int) -> float:
@@ -451,6 +465,7 @@ def run_ray_launching(device, kernels: dict) -> dict:
             msg = f"the {label} run did not go through the kernel only, with one BVH build: {counts}"
             raise AssertionError(msg)
         kernels["closest"]["launches"] = kernels["closest"].get("launches", 0) + counts["closest"]
+        kernels["closest"].setdefault("launches_by_path", {})[label] = counts["closest"]
         walls[label] = wall
         return out, wall, counts
 
@@ -1092,6 +1107,416 @@ def run_smoothed(device) -> None:
     )
 
 
+# -- The hybrid tracer and antenna patterns -----------------------------------
+
+
+def counters() -> dict:
+    """Each count's ``(module, attribute)``: every kernel's launches and plain calls, BVH builds, DFS calls."""
+    from differt_tpu_torch import native
+    from differt_tpu_torch.ops import _bvh, _closest, _rt, _trace
+
+    return {
+        "closest": (_closest, "LAUNCHES"),
+        "closest_plain": (_closest, "REFERENCE_CALLS"),
+        "trace": (_trace, "LAUNCHES"),
+        "trace_plain": (_trace, "REFERENCE_CALLS"),
+        "anyhit": (_rt, "LAUNCHES"),
+        "anyhit_plain": (_rt, "REFERENCE_CALLS"),
+        "bvh_builds": (_bvh, "BUILDS"),
+        "dfs": (native, "CALLS"),
+        "dfs_fallback": (native, "FALLBACK_CALLS"),
+    }
+
+
+def counted_call(label: str, fn, want: dict):
+    """Run ``fn()`` once, timed (wall and CUDA events), with every count of
+    :func:`counters` set to 0 just before; the counts after must equal ``want``.
+
+    Returns ``(out, wall_s, card_ms, counts)``; ``want`` lists every count
+    that the call may raise (the others must stay 0).
+    """
+    torch.cuda.synchronize()
+    named = counters()
+    for module, attr in named.values():
+        setattr(module, attr, 0)
+    begin, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start = time.perf_counter()
+    begin.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    counts = {k: getattr(module, attr) for k, (module, attr) in named.items()}
+    expected = {k: want.get(k, 0) for k in counts}
+    if counts != expected:
+        msg = f"the {label} run's counts are {counts}, expected {expected}"
+        raise AssertionError(msg)
+    return out, wall, begin.elapsed_time(end), counts
+
+
+def once_ms(fn) -> float:
+    """Device time of one call of ``fn()`` in ms (CUDA events), with no warm-up: for the slow plain versions."""
+    torch.cuda.synchronize()
+    begin, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    begin.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return begin.elapsed_time(end)
+
+
+def visibility_launches(num_vertices: int) -> int:
+    from differt_tpu_torch.ops._dispatch import visibility_groups
+
+    return len(visibility_groups(num_vertices, VIS_RAYS))
+
+
+def run_visibility(city, kernels: dict) -> dict:
+    """Phase 14: ``Mesh.triangles_visible_from_vertex`` from the TX and the
+    128 receivers, 1,000,000 lattice rays each, through ``closest.cu``
+    (counted); for the TX and 8 receivers, every ray's hit against the plain
+    closest hit (``t`` bit-equal, a differing index the tie key's winner)."""
+    from differt_tpu_torch.ops import _closest, _dispatch
+    from differt_tpu_torch.rt._scan import mark_visible, visibility_frustums
+
+    mesh = city.mesh
+    tx = city.transmitters.reshape(-1, 3)
+    rx = city.receivers.reshape(-1, 3)
+    num_tris = mesh.num_triangles
+    launches = visibility_launches(1) + visibility_launches(rx.shape[0])
+    fresh(city).mesh.triangles_visible_from_vertex(tx, num_rays=VIS_RAYS)  # warm-up
+    run_mesh = fresh(city).mesh
+
+    def both():
+        return (
+            run_mesh.triangles_visible_from_vertex(tx, num_rays=VIS_RAYS)[0],
+            run_mesh.triangles_visible_from_vertex(rx, num_rays=VIS_RAYS),
+        )
+
+    (vis_tx, vis_rx), wall, card_ms, counts = counted_call(
+        "visibility", both, {"closest": launches, "bvh_builds": 1}
+    )
+    kernels["closest"]["launches"] += counts["closest"]
+    kernels["closest"]["launches_by_path"]["visibility"] = counts["closest"]
+
+    # The TX and 8 receivers: the same rays through the kernel and its plain version.
+    tv = mesh.triangle_vertices.contiguous()
+    bvh = run_mesh.bvh
+    picks = list(range(0, rx.shape[0], rx.shape[0] // VIS_CHECKED_RX))[:VIS_CHECKED_RX]
+    checked = [("TX", tx[0], vis_tx)] + [(f"RX {j}", rx[j], vis_rx[j]) for j in picks]
+    compared = tie_rays = marks_differ = 0
+    timing = {}
+    for label, vertex, row in checked:
+        o = vertex.expand(VIS_RAYS, 3).contiguous()
+        d = _dispatch.visibility_rays(mesh, vertex[None], VIS_RAYS)[0].contiguous()
+        idx, t = _closest.first_triangle_hit_by_ray_cuda(o, d, None, bvh=bvh)
+        plain = {}
+        plain_ms = once_ms(
+            lambda: plain.update(
+                zip(("idx", "t"), _closest.first_triangle_hit_by_ray_reference(o, d, tv, mesh.mask))
+            )
+        )
+        if not torch.equal(t, plain["t"]):
+            msg = f"visibility: closest-hit t differs from its plain version ({label})"
+            raise AssertionError(msg)
+        differ = idx != plain["idx"]
+        winner = _closest.tie_key_winner(
+            o[differ], d[differ], tv, mesh.mask, plain["t"][differ], bvh.positions
+        )
+        if not torch.equal(idx[differ], winner):
+            msg = f"visibility: {int((idx[differ] != winner).sum())} indices are not the tie key's winners ({label})"
+            raise AssertionError(msg)
+        marks = torch.zeros(num_tris + 1, dtype=torch.bool, device=o.device)
+        mark_visible(marks, idx)
+        if not torch.equal(marks[:-1], row):
+            msg = f"visibility: the path's marks are not its kernel's hits ({label})"
+            raise AssertionError(msg)
+        plain_marks = torch.zeros_like(marks)
+        mark_visible(plain_marks, plain["idx"])
+        compared += VIS_RAYS
+        tie_rays += int(differ.sum())
+        marks_differ += int((marks != plain_marks).sum())
+        if label == "TX":
+            pos = torch.empty(VIS_RAYS, dtype=torch.int32, device=o.device)
+            t_out = torch.empty(VIS_RAYS, device=o.device)
+            eps = TRACE_KW["epsilon"]
+            bound_ms, bound_by = bound(VIS_RAYS * (24 + 8) + mesh_bytes(tv, None), VIS_RAYS * MT_FLOPS)
+            timing = {
+                "shape": "visibility from the TX: 1,000,000 lattice rays x 20,738 triangles",
+                "kernel_only_ms": cuda_ms(lambda: _closest.launch_closest(o, d, bvh, eps, pos, t_out), 10),
+                "ms": cuda_ms(lambda: _closest.first_triangle_hit_by_ray_cuda(o, d, None, bvh=bvh), 10),
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+            }
+        del o, d, idx, t, plain
+    kernels["closest"]["visibility"] = timing
+
+    frustums = visibility_frustums(rx, mesh.triangle_vertices, mesh.mask)
+    spans = torch.rad2deg(frustums[:, 1, 1:] - frustums[:, 0, 1:])  # [128, (polar, azimuth)]
+    per_rx = [
+        [round(float(az), 1), round(float(pol), 1), int(n)]
+        for (pol, az), n in zip(spans.tolist(), vis_rx.sum(dim=-1).tolist())
+    ]
+    rx_counts = vis_rx.sum(dim=-1).float()
+    print(
+        f"phase 14 visibility: vertices=1 TX + {rx.shape[0]} RX, rays={VIS_RAYS} each"
+        f" ({(1 + rx.shape[0]) * VIS_RAYS} in all), triangles={num_tris}"
+        f" visible_tx={int(vis_tx.sum())} visible_rx_union={int(vis_rx.any(dim=0).sum())}"
+        f" visible_per_rx min/median/max={int(rx_counts.min())}/{int(rx_counts.median())}/{int(rx_counts.max())}"
+        f" wall_s={wall:.4f} card_ms={card_ms:.2f} counts={json.dumps(counts)};"
+        f" TX + {len(picks)} RX checked: rays={compared} tie_rays={tie_rays}"
+        f" ({100.0 * tie_rays / compared:.4f}%) t_bit_equal=True indices_tie_key_winners=True"
+        f" marks_that_differ_from_the_plain_scan's={marks_differ};"
+        f" closest at 1,000,000 rays: kernel_only_ms={timing['kernel_only_ms']:.3f}"
+        f" wrapper_ms={timing['ms']:.3f} plain_ms={timing['plain_ms']:.1f}"
+        f" bound_ms={timing['bound_ms']:.5f} ({timing['bound_by']})",
+        flush=True,
+    )
+    print(
+        f"phase 14 receivers' frustums [azimuth span deg, polar span deg, visible]: {json.dumps(per_rx)}",
+        flush=True,
+    )
+    return {"tx": vis_tx, "rx": vis_rx}
+
+
+def exhaustive_index(candidates: torch.Tensor, num_primitives: int) -> torch.Tensor:
+    """Each loop-free candidate's row in the exhaustive decode (``generate_path_candidates``)."""
+    index = candidates[:, 0].clone()
+    for b in range(1, candidates.shape[1]):
+        c, prev = candidates[:, b], candidates[:, b - 1]
+        index = index * (num_primitives - 1) + c - (c > prev).long()
+    return index
+
+
+def run_hybrid(
+    city, kernels: dict, exhaustive_order1: torch.Tensor, materials: dict, pairs: torch.Tensor
+) -> dict:
+    """Phase 15: ``HybridPathTracer(num_rays=1,000,000)`` candidates at orders 1
+    and 2 (the native DFS, counted), then ``power_map_chunked(solver=...)``
+    at each order, on the whole set, counted; at order 2, which of the
+    valid paths among ``pairs`` (phase 3 (c)'s near pairs) the set holds."""
+    from differt_tpu_torch import coverage, native
+    from differt_tpu_torch.rt import HybridPathTracer, trace_path_candidates
+
+    mesh = city.mesh
+    num = mesh.num_primitives
+    tx = city.transmitters.reshape(-1, 3)
+    rx = city.receivers.reshape(-1, 3)
+    tracer = HybridPathTracer(num_rays=VIS_RAYS)
+    if not native.is_available():
+        msg = "the native DFS did not build (no g++?)"
+        raise AssertionError(msg)
+
+    (vis_tx, vis_rx, mask), vis_s, _, _ = counted_call(
+        "hybrid visibility", lambda: tracer._visibility(city),
+        {"closest": visibility_launches(1) + visibility_launches(rx.shape[0])},
+    )
+    sets, dfs_s = {}, {}
+    for order in (1, 2):
+        cands, dfs_s[order], _, _ = counted_call(
+            f"order-{order} DFS",
+            lambda: native.filtered_path_candidates(num, order, vis_tx, vis_rx, mask, device=mesh.device),
+            {"dfs": 1},
+        )
+        launches = visibility_launches(1) + visibility_launches(rx.shape[0])
+        (gen, _), gen_s, _, _ = counted_call(
+            f"order-{order} hybrid candidates",
+            lambda: tracer.generate_path_candidates(city, order),
+            {"closest": launches, "dfs": 1},
+        )
+        if not torch.equal(gen, cands):
+            msg = f"the tracer's order-{order} candidates are not the DFS's"
+            raise AssertionError(msg)
+        # A subset of the exhaustive candidates: loop-free, in range, each
+        # once and in the exhaustive order, first seen by the TX, last by an RX.
+        index = exhaustive_index(cands, num)
+        ok = (
+            bool((cands >= 0).all() and (cands < num).all())
+            and bool((cands[:, 1:] != cands[:, :-1]).all())
+            and bool((index[1:] > index[:-1]).all())
+            and bool(vis_tx[cands[:, 0]].all() and vis_rx[cands[:, -1]].all())
+        )
+        if not ok:
+            msg = f"the order-{order} hybrid candidates are not a subset of the exhaustive ones"
+            raise AssertionError(msg)
+        total = num * (num - 1) ** (order - 1)
+        sets[order] = cands
+        print(
+            f"phase 15 hybrid order {order}: candidates={cands.shape[0]} of {total} exhaustive"
+            f" ({100.0 * cands.shape[0] / total:.4f}%) dfs_host_ms={dfs_s[order] * 1e3:.2f}"
+            f" generate_path_candidates_s={gen_s:.4f} (visibility and DFS) subset_of_exhaustive=True",
+            flush=True,
+        )
+
+    def hybrid_map(scene, order, **kw):
+        return coverage.power_map_chunked(
+            scene, FREQUENCY, order=order, solver=tracer, candidate_chunk=4096, rx_chunk=128,
+            **materials, **kw,
+        )
+
+    hybrid_map(city, 1)  # warm-up
+    c1 = sets[1]
+    vis_launches = visibility_launches(1) + visibility_launches(rx.shape[0])
+    chunks1 = -(-c1.shape[0] // 4096)
+    power1, wall1, card1, counts1 = counted_call(
+        "hybrid order-1 map", lambda: hybrid_map(fresh(city), 1),
+        {"closest": vis_launches, "trace": chunks1, "bvh_builds": 1, "dfs": 1},
+    )
+    # Recall and the subset rule on traced paths: every valid hybrid path is
+    # a valid exhaustive path (order 1: the candidate is the triangle).
+    every = trace_path_candidates(mesh, tx, rx, torch.arange(num, device=mesh.device)[:, None]).mask
+    hybrid = trace_path_candidates(mesh, tx, rx, c1).mask
+    if (hybrid & ~every[..., c1[:, 0]]).any():
+        msg = "a valid hybrid order-1 path is not a valid exhaustive path"
+        raise AssertionError(msg)
+    recall = int(hybrid.sum()) / max(int(every.sum()), 1)
+    # The map within 0.1 dB of the exhaustive one where every valid path survived.
+    kept = torch.zeros(num, dtype=torch.bool, device=mesh.device)
+    kept[c1[:, 0]] = True
+    whole = ~(every & ~kept).any(dim=-1).reshape(exhaustive_order1.shape)
+    lit = whole & (exhaustive_order1 > 0)
+    if not lit.any():
+        msg = "no lit pixel kept all its order-1 paths"
+        raise AssertionError(msg)
+    err_db = float((10.0 * torch.log10(power1[lit].double() / exhaustive_order1[lit].double())).abs().max())
+    if not err_db <= 0.1:
+        msg = f"the hybrid order-1 map is {err_db} dB off the exhaustive one where all paths survived"
+        raise AssertionError(msg)
+
+    # Order 2, the whole hybrid set.
+    c2 = sets[2]
+    full2 = c2.shape[0]
+    power2, wall2, card2, counts2 = counted_call(
+        "hybrid order-2 map", lambda: hybrid_map(fresh(city), 2),
+        {"closest": vis_launches, "trace": -(-full2 // 4096), "bvh_builds": 1, "dfs": 1},
+    )
+    lit2 = int((power2 > 0).sum())
+    if not (torch.isfinite(power2).all() and lit2 > 0):
+        msg = f"the hybrid order-2 map is not finite or all zero (lit {lit2})"
+        raise AssertionError(msg)
+    # The valid order-2 paths among phase 3 (c)'s near pairs: those the
+    # hybrid set holds (its rows are in the exhaustive order), and the
+    # 4,096-row chunk of the set that holds the first of them, for (g).
+    near_valid = pairs[trace_path_candidates(mesh, tx, rx, pairs).mask.reshape(-1, pairs.shape[0]).any(dim=0)]
+    index2 = exhaustive_index(c2, num)
+    near_index = exhaustive_index(near_valid, num)
+    rows = torch.searchsorted(index2, near_index).clamp(max=full2 - 1)
+    held = index2[rows] == near_index
+    if not held.any():
+        msg = f"the hybrid order-2 set holds none of the {near_valid.shape[0]} valid near-pair paths"
+        raise AssertionError(msg)
+    lo = int(rows[held].min()) // 4096 * 4096
+    chunk2 = c2[lo : lo + 4096]
+    trace_launches = counts1["trace"] + counts2["trace"]
+    kernels["trace"]["launches"] += trace_launches
+    kernels["trace"]["launches_by_path"]["hybrid"] = trace_launches
+    kernels["closest"]["launches"] += counts1["closest"] + counts2["closest"]
+    kernels["closest"]["launches_by_path"]["hybrid"] = counts1["closest"] + counts2["closest"]
+    print(
+        f"phase 15 hybrid order-1 map: candidates={c1.shape[0]} rx={rx.shape[0]}"
+        f" wall_s={wall1:.4f} card_ms={card1:.2f} paths_per_s={c1.shape[0] * rx.shape[0] / wall1:.4g}"
+        f" wall split: visibility_s={vis_s:.4f} dfs_s={dfs_s[1]:.4f}"
+        f" trace_and_em_s={wall1 - vis_s - dfs_s[1]:.4f} (the call less the visibility and the DFS timed apart)"
+        f" counts={json.dumps(counts1)} valid_hybrid={int(hybrid.sum())} valid_exhaustive={int(every.sum())}"
+        f" recall={recall:.4f} pixels_with_all_paths_kept={int(lit.sum())} of {int((exhaustive_order1 > 0).sum())} lit"
+        f" max_err_db={err_db:.4g} (gate 0.1)",
+        flush=True,
+    )
+    print(
+        f"phase 15 hybrid order-2 map: candidates={full2} rx={rx.shape[0]}"
+        f" wall_s={wall2:.4f} card_ms={card2:.2f} paths_per_s={full2 * rx.shape[0] / wall2:.4g}"
+        f" lit={lit2} counts={json.dumps(counts2)}; valid near-pair paths held by the hybrid set:"
+        f" {int(held.sum())} of {near_valid.shape[0]}; chunk (g) = rows {lo}-{lo + chunk2.shape[0] - 1}",
+        flush=True,
+    )
+    return {"tracer": tracer, "map": hybrid_map, "chunk2": chunk2}
+
+
+def run_patterns(city, kernels: dict, runs, coverage_run, iso: dict) -> dict:
+    """Phase 16: phase 4's call (orders 0-2) with a half-wave dipole at the
+    TX, counted, against the same call on the plain versions; the order-0
+    ratio to the isotropic map against the pattern's gain; a short dipole at
+    order 0."""
+    from differt_tpu_torch import ops
+    from differt_tpu_torch.em import HWDipolePattern, ShortDipolePattern
+
+    tx = city.transmitters.reshape(-1, 3)[0]
+    hw = HWDipolePattern(FREQUENCY, direction=(0.0, 0.0, 1.0), center=tx)
+    short = ShortDipolePattern(FREQUENCY, direction=(0.0, 0.0, 1.0), center=tx)
+    for order, candidates, _ in runs:  # warm-up
+        coverage_run(city, order, None if candidates is None else candidates[:4096], tx_pattern=hw)
+    maps, walls, launches = {}, {}, {"anyhit": 0, "trace": 0}
+    for order, candidates, num_candidates in runs:
+        want = {"anyhit": 1} if order == 0 else {"trace": -(-num_candidates // 4096)}
+        maps[order], walls[order], _, counts = counted_call(
+            f"order-{order} dipole map",
+            lambda: coverage_run(fresh(city), order, candidates, tx_pattern=hw),
+            {**want, "bvh_builds": 1},
+        )
+        for k in launches:
+            launches[k] += counts[k]
+    ops.set_backend("torch")
+    try:
+        errors = {}
+        plain_s = {}
+        for order, candidates, _ in runs:
+            start = time.perf_counter()
+            plain = coverage_run(city, order, candidates, tx_pattern=hw)
+            torch.cuda.synchronize()
+            plain_s[order] = time.perf_counter() - start
+            both_zero = not (maps[order].any() or plain.any())
+            errors[order] = 0.0 if both_zero else db_error(maps[order], plain)
+    finally:
+        ops.set_backend("auto")
+    if not all(err <= 0.1 for err in errors.values()):
+        msg = f"the dipole maps differ from the plain run by {errors} dB"
+        raise AssertionError(msg)
+    # Order 0: the ratio to the isotropic map is the pattern's gain toward each receiver.
+    k = (city.receivers.reshape(-1, 3) - tx).double()
+    cos_t = (k[:, 2] / k.norm(dim=-1)).reshape(iso[0].shape)
+    sin_sq = 1.0 - cos_t * cos_t
+    short_map, _, _, short_counts = counted_call(
+        "order-0 short-dipole map", lambda: coverage_run(fresh(city), 0, None, tx_pattern=short),
+        {"anyhit": 1, "bvh_builds": 1},
+    )
+    launches["anyhit"] += short_counts["anyhit"]
+    # Straight below the TX (sin theta = 0) a dipole along z sends nothing.
+    axial = sin_sq < 1e-12
+    if maps[0][axial].any() or short_map[axial].any():
+        msg = "a dipole along z lights the receiver on its axis"
+        raise AssertionError(msg)
+    lit = (iso[0] > 0) & ~axial
+    ratio_err = {}
+    for label, power, gain in (
+        ("hw", maps[0], HW_DIPOLE_GAIN * torch.cos(0.5 * np.pi * cos_t) ** 2 / sin_sq),
+        ("short", short_map, 1.5 * sin_sq),
+    ):
+        ratio = power[lit].double() / iso[0][lit].double()
+        ratio_err[label] = float(((ratio - gain[lit]) / gain[lit]).abs().max())
+    if not lit.any() or not all(err <= 1e-3 for err in ratio_err.values()):
+        msg = f"the order-0 dipole maps are off the patterns' gains: {ratio_err} (lit {int(lit.sum())})"
+        raise AssertionError(msg)
+    for k_name in launches:
+        kernels[k_name]["launches"] += launches[k_name]
+    kernels["trace"]["launches_by_path"]["coverage_hw_dipole"] = launches["trace"]
+    rates = {
+        order: num_candidates * city.num_receivers / walls[order] for order, _, num_candidates in runs
+    }
+    print(
+        f"phase 16 antenna patterns, HW dipole along z at the TX, orders 0-2 (phase 4's call):"
+        f" wall_s={json.dumps({o: round(w, 4) for o, w in walls.items()})}"
+        f" paths_per_s={json.dumps({o: float(f'{r:.4g}') for o, r in rates.items()})}"
+        f" lit={json.dumps({o: int((m > 0).sum()) for o, m in maps.items()})}"
+        f" launches={json.dumps(launches)} (plain 0, one BVH build a call)"
+        f" max_err_db_vs_plain_run={json.dumps(errors)} (gate 0.1) plain_run_s={json.dumps({o: round(s, 2) for o, s in plain_s.items()})}"
+        f" order-0 gain ratio max_rel_err: hw={ratio_err['hw']:.3g} short={ratio_err['short']:.3g}"
+        f" (gate 1e-3) over {int(lit.sum())} lit receivers off the axis ({int(axial.sum())} on it, dark)",
+        flush=True,
+    )
+    return {"hw": hw}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         msg = "chip_smoke.py needs a CUDA device, and none is visible."
@@ -1288,7 +1713,7 @@ def main() -> None:
         (2, main_candidates, MAIN_CANDIDATES),
     )
 
-    def coverage_run(scene, order, candidates):
+    def coverage_run(scene, order, candidates, **kw):
         return coverage.power_map_chunked(
             scene,
             FREQUENCY,
@@ -1297,6 +1722,7 @@ def main() -> None:
             candidate_chunk=4096,
             rx_chunk=128,
             **materials,
+            **kw,
         )
 
     # Warm-up: the first CUDA call of each complex-valued PyTorch op compiles
@@ -1390,8 +1816,23 @@ def main() -> None:
     run_placement(device, kernels)
     run_smoothed(device)
 
+    # Phases 14-16: visibility, the hybrid tracer, antenna patterns.
+    run_visibility(city, kernels)
+    hybrid = run_hybrid(city, kernels, maps[1], materials, pairs)
+    kernels["trace"]["hybrid_chunk"] = {
+        "shape": "hybrid order-2 chunk: 4,096 candidates x 128 RX x 20,738 triangles",
+        **check_trace("(g) hybrid order-2 chunk", city, hybrid["chunk2"], 2, want_valid=True),
+    }
+    patterns = run_patterns(city, kernels, runs, coverage_run, maps)
+
     order2 = main_candidates[: 32 * 4096]
     profile("coverage order 2, 32 chunks", lambda: coverage_run(city, 2, order2), ("trace_kernel",))
+    profile(
+        "coverage order 2 with HW dipole, 32 chunks",
+        lambda: coverage_run(city, 2, order2, tx_pattern=patterns["hw"]),
+        ("trace_kernel",),
+    )
+    profile("hybrid order 1", lambda: hybrid["map"](city, 1), ("closest_kernel", "trace_kernel"))
     profile(
         "coverage order 0", lambda: coverage_run(city, 0, None), ("compact_kernel", "anyhit_kernel")
     )

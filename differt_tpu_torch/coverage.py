@@ -20,10 +20,6 @@ from .geometry import Scene, TracedPaths
 from .utils import dot3, gather_columns, normalize3, safe_divide, sp_directions3, spherical3
 
 
-def _antennas_not_ported() -> NotImplementedError:
-    return NotImplementedError("Antenna patterns are not ported yet (ROADMAP A10).")
-
-
 def complex_amplitudes(
     paths: TracedPaths,
     scene: Scene,
@@ -45,9 +41,13 @@ def complex_amplitudes(
     weight alone would not do, as ``0 * inf`` in a backward is NaN. The
     substitution looks at the geometry, not at the mask: a path of low
     confidence still contributes its own amplitude times that confidence.
+
+    With a ``tx_pattern`` (a :class:`~differt_tpu_torch.em.RadiationPattern`)
+    the launch field follows the pattern, evaluated one metre from its
+    centre along each path's departure: its (s, p) vectors projected on the
+    first segment's spherical frame replace the unit vertical polarization
+    of an isotropic antenna.
     """
-    if tx_pattern is not None:
-        raise _antennas_not_ported()
     device = paths.vertices.device
     frequency = torch.as_tensor(frequency, dtype=torch.float32, device=device)
     eta_r = torch.as_tensor(eta_r, dtype=torch.float32, device=device)
@@ -81,8 +81,17 @@ def complex_amplitudes(
         k_hats.append(k_hat)
         s_lens.append(s_len)
 
-    e_theta = torch.ones(paths.mask.shape, dtype=torch.complex64, device=device)
-    e_phi = torch.zeros(paths.mask.shape, dtype=torch.complex64, device=device)
+    if tx_pattern is None:
+        e_theta = torch.ones(paths.mask.shape, dtype=torch.complex64, device=device)
+        e_phi = torch.zeros(paths.mask.shape, dtype=torch.complex64, device=device)
+    else:
+        k0 = k_hats[0]
+        r_eval = tx_pattern.center + torch.stack(k0, dim=-1)
+        s_vec, p_vec = tx_pattern.polarization_vectors(r_eval)
+        e_vec = tuple(s_vec[..., axis] + p_vec[..., axis] for axis in range(3))
+        th0, ph0 = spherical3(k0)
+        e_theta = dot3(e_vec, th0).to(torch.complex64)
+        e_phi = dot3(e_vec, ph0).to(torch.complex64)
 
     if order > 0:
         mesh = scene.mesh
@@ -109,7 +118,9 @@ def complex_amplitudes(
         )
 
         for b in range(order):
-            cols = gather_columns(table, paths.objects[..., b + 1])
+            # A bounce padded by `pad_order` (object -1) reads row 0 and is
+            # passed over below (its type is -1).
+            cols = gather_columns(table, paths.objects[..., b + 1].clamp(min=0))
             normal = (cols[0], cols[1], cols[2])
             n_r_val = torch.complex(cols[3], cols[4])
             thickness_val = cols[5]
@@ -204,12 +215,17 @@ def power_map(
     conductivity: torch.Tensor | None = None,
     thickness: torch.Tensor | None = None,
     coherent: bool = True,
+    solver="exhaustive",
     tx_pattern=None,
     **solver_kwargs,
 ) -> torch.Tensor:
     """Coverage map: received power for every TX/RX pair, ``[*tx_batch, *rx_batch]``.
 
-    Materials default to the ITU table at ``frequency``.
+    Materials default to the ITU table at ``frequency``. ``solver`` and
+    ``solver_kwargs`` go to :meth:`Scene.trace_paths
+    <differt_tpu_torch.geometry.Scene.trace_paths>` (``"exhaustive"``,
+    ``"hybrid"`` or a tracer instance); ``tx_pattern`` to
+    :func:`complex_amplitudes`.
 
     >>> import torch
     >>> from differt_tpu_torch.geometry import Mesh, Scene
@@ -219,13 +235,11 @@ def power_map(
     >>> tuple(power.shape), bool((power > 0).all())
     ((1, 2, 4), True)
     """
-    if tx_pattern is not None:
-        raise _antennas_not_ported()
     frequency = torch.as_tensor(frequency, dtype=torch.float32, device=scene.mesh.device)
     eta_r, conductivity, thickness = _resolve_materials(
         scene, frequency, eta_r, conductivity, thickness
     )
-    paths = scene.trace_paths(order=order, **solver_kwargs)
+    paths = scene.trace_paths(order=order, solver=solver, **solver_kwargs)
     return received_power(
         paths,
         scene,
@@ -234,6 +248,7 @@ def power_map(
         conductivity=conductivity,
         thickness=thickness,
         coherent=coherent,
+        tx_pattern=tx_pattern,
     )
 
 
@@ -252,6 +267,7 @@ def _coverage_tile(
     megakernel: bool | None,
     batch_size: int | None = 512,
     smoothing_factor: float | None = None,
+    tx_pattern=None,
 ) -> torch.Tensor:
     """One (RX tile, candidate chunk) step of :func:`power_map_chunked`.
 
@@ -284,6 +300,7 @@ def _coverage_tile(
         eta_r=eta_r,
         conductivity=conductivity,
         thickness=thickness,
+        tx_pattern=tx_pattern,
     )
     if coherent:
         return a.sum(dim=-1)
@@ -299,6 +316,7 @@ def power_map_chunked(
     conductivity: torch.Tensor | None = None,
     thickness: torch.Tensor | None = None,
     coherent: bool = True,
+    solver="exhaustive",
     path_candidates: torch.Tensor | None = None,
     candidate_chunk: int = 4096,
     rx_chunk: int = 4096,
@@ -313,14 +331,15 @@ def power_map_chunked(
     ``rx_chunk`` receivers, accumulating the complex path sum (or the power
     sum) per pixel. The receivers are Morton-ordered first, so each tile is
     spatially compact; the map is scattered back to input order.
-    ``path_candidates`` overrides the exhaustive candidate set;
-    ``smoothing_factor`` and ``batch_size`` go to the trace
-    (:func:`~differt_tpu_torch.rt.trace_path_candidates`).
+    ``path_candidates`` overrides the candidate set, which ``solver``
+    otherwise generates (``"exhaustive"``, ``"hybrid"`` or a tracer
+    instance: its ``generate_path_candidates``); ``smoothing_factor`` and
+    ``batch_size`` go to the trace
+    (:func:`~differt_tpu_torch.rt.trace_path_candidates`), ``tx_pattern``
+    to :func:`complex_amplitudes`.
     """
-    if tx_pattern is not None:
-        raise _antennas_not_ported()
     from .ops._rt import morton_perm_points
-    from .rt._solvers import ExhaustivePathTracer
+    from .rt._solvers import _SOLVER_REGISTRY
 
     device = scene.mesh.device
     frequency = torch.as_tensor(frequency, dtype=torch.float32, device=device)
@@ -331,7 +350,8 @@ def power_map_chunked(
     rx_all = scene.receivers.reshape(-1, 3)
 
     if path_candidates is None:
-        candidates, itypes = ExhaustivePathTracer().generate_path_candidates(scene, order)
+        tracer = _SOLVER_REGISTRY[solver]() if isinstance(solver, str) else solver
+        candidates, itypes = tracer.generate_path_candidates(scene, order)
     else:
         candidates = torch.as_tensor(path_candidates, device=device)
         itypes = torch.zeros_like(candidates, dtype=torch.int32)
@@ -376,6 +396,7 @@ def power_map_chunked(
                 megakernel,
                 batch_size,
                 smoothing_factor,
+                tx_pattern,
             )
             acc = part if acc is None else acc + part
         out_tiles.append(acc)

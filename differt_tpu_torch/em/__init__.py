@@ -1,16 +1,64 @@
-"""Electromagnetic constants, Fresnel coefficients and materials."""
+"""Electromagnetics: constants, Fresnel coefficients, materials, antennas, polarization frames and delays."""
 
+from ._antenna import (
+    Antenna,
+    BaseAntenna,
+    Dipole,
+    HWDipolePattern,
+    RadiationPattern,
+    ShortDipole,
+    ShortDipolePattern,
+    poynting_vector,
+)
 from ._constants import c, epsilon_0, mu_0, z_0
-from ._fresnel import reflection_coefficients, slab_reflection_coefficients
-from ._material import Material, materials
+from ._fresnel import (
+    fresnel_coefficients,
+    reflection_coefficients,
+    refraction_coefficients,
+    refractive_index,
+    slab_reflection_coefficients,
+)
+from ._interaction_type import InteractionType
+from ._material import Material, MaterialsDict, materials
+from ._utils import (
+    fspl,
+    length_to_delay,
+    path_delay,
+    sp_directions,
+    sp_rotation_matrix,
+    spherical_basis,
+    transition_apply,
+    transition_matrix,
+)
 
 __all__ = (
+    "Antenna",
+    "BaseAntenna",
+    "Dipole",
+    "HWDipolePattern",
+    "InteractionType",
     "Material",
+    "MaterialsDict",
+    "RadiationPattern",
+    "ShortDipole",
+    "ShortDipolePattern",
     "c",
     "epsilon_0",
+    "fresnel_coefficients",
+    "fspl",
+    "length_to_delay",
     "materials",
     "mu_0",
+    "path_delay",
+    "poynting_vector",
     "reflection_coefficients",
+    "refraction_coefficients",
+    "refractive_index",
     "slab_reflection_coefficients",
+    "sp_directions",
+    "sp_rotation_matrix",
+    "spherical_basis",
+    "transition_apply",
+    "transition_matrix",
     "z_0",
 )

@@ -42,7 +42,8 @@ def fibonacci_lattice(
     With ``frustum`` (min and max rows of ``(polar, azimuth)``; a leading
     radial column is ignored), the points are spread uniformly in solid
     angle within it, on the frustum's device and dtype; otherwise on
-    ``device``, the card when None.
+    ``device``, the card when None. A batch of frustums ``[*batch, 2, 3]``
+    gives ``[*batch, n, 3]``, each row as its frustum alone would give it.
 
     >>> pts = fibonacci_lattice(100, device="cpu")
     >>> tuple(pts.shape), bool(((pts * pts).sum(-1) - 1.0).abs().max() < 1e-6)
@@ -66,8 +67,8 @@ def fibonacci_lattice(
     if frustum is not None:
         # Uniform steps in cos(polar) are equal steps of solid angle; the
         # golden fractions spread the azimuths over the frustum's span.
-        polar_lo, polar_hi = frustum[:, -2]
-        azim_lo, azim_hi = frustum[:, -1]
+        polar_lo, polar_hi = frustum[..., 0, -2, None], frustum[..., 1, -2, None]
+        azim_lo, azim_hi = frustum[..., 0, -1, None], frustum[..., 1, -1, None]
         step = i / (n - 1) if n > 1 else i
         cos_polar = torch.cos(polar_lo) * (1.0 - step) + torch.cos(polar_hi) * step
         polar = torch.arccos(cos_polar)

@@ -337,3 +337,22 @@ class Mesh:
         from ..ops import dispatch_first_triangle_hit_by_ray
 
         return dispatch_first_triangle_hit_by_ray(self, ray_origins, ray_directions)
+
+    def triangles_visible_from_vertex(
+        self, vertex: torch.Tensor, num_rays: int = int(1e6), **kwargs
+    ) -> torch.Tensor:
+        """Which (active) triangles each ``[*batch, 3]`` vertex sees, ``[*batch, num_triangles]`` bool.
+
+        Estimated by launching ``num_rays`` lattice rays over each vertex's
+        frustum and marking the first triangle each ray hits: through the
+        closest-hit kernel on CUDA tensors, its plain version on CPU tensors
+        (see :mod:`..ops._dispatch`; ``kwargs``: ``batch_size``, ``epsilon``).
+
+        >>> import torch
+        >>> box = Mesh.box(10.0, 10.0, 10.0, with_top=True, device="cpu")
+        >>> box.triangles_visible_from_vertex(torch.tensor([0.0, 0.0, 20.0]), num_rays=2000).tolist()
+        [False, False, False, False, False, False, False, False, False, False, True, True]
+        """
+        from ..ops import dispatch_triangles_visible_from_vertex
+
+        return dispatch_triangles_visible_from_vertex(self, vertex, num_rays=num_rays, **kwargs)

@@ -52,18 +52,112 @@ class TracedPaths:
     def num_valid_paths(self) -> int:
         return int(torch.count_nonzero(self.valid_mask))
 
+    _TRAILING = (("vertices", 2), ("objects", 1), ("mask", 0), ("interaction_types", 1))
+
+    def _remap(self, fn) -> "TracedPaths":
+        # fn(array, number of per-path trailing dimensions) -> array
+        return dataclasses.replace(
+            self, **{name: fn(getattr(self, name), nd) for name, nd in self._TRAILING}
+        )
+
     def reshape(self, *batch: int) -> "TracedPaths":
         """Reshape the batch dimensions (``-1`` wildcards allowed)."""
         target = self.mask.reshape(*batch).shape
+        return self._remap(lambda x, nd: x.reshape(*target, *x.shape[x.ndim - nd :]))
+
+    def masked(self) -> "TracedPaths":
+        """The valid paths only, their batch flattened (a mask of ones).
+
+        >>> import torch
+        >>> paths = TracedPaths(
+        ...     torch.zeros((2, 3, 3, 3)), torch.zeros((2, 3, 3), dtype=torch.int64),
+        ...     mask=torch.tensor([[True, False, True], [False, False, True]]),
+        ...     interaction_types=torch.zeros((2, 3, 1), dtype=torch.int32),
+        ... )
+        >>> paths.masked().shape, paths.masked_objects.shape
+        ((3,), torch.Size([3, 3]))
+        """
+        flat = self.reshape(-1)
+        picks = torch.nonzero(flat.valid_mask).squeeze(-1)
+        gathered = flat._remap(lambda x, nd: x[picks])
+        return dataclasses.replace(
+            gathered, mask=torch.ones(picks.shape, dtype=torch.bool, device=picks.device)
+        )
+
+    @property
+    def masked_vertices(self) -> torch.Tensor:
+        """``[num_valid_paths, path_length, 3]``: the vertices of the valid paths."""
+        return self.masked().vertices
+
+    @property
+    def masked_objects(self) -> torch.Tensor:
+        """``[num_valid_paths, path_length]``: the objects of the valid paths."""
+        return self.masked().objects
+
+    def pad_order(self, target_order: int) -> "TracedPaths":
+        """Pad every path to ``target_order`` interactions.
+
+        The extra points sit evenly along the last segment (between the last
+        interaction and the RX), so that no segment has zero length and the
+        length, delay and every frame stay as they were. They carry object
+        -1 and interaction type -1, which the EM chain passes over.
+        """
+        extra = target_order - self.order
+        if extra < 0:
+            msg = f"Cannot pad order-{self.order} paths down to order {target_order}."
+            raise ValueError(msg)
+        if extra == 0:
+            return self
+        v = self.vertices
+        seg_start, seg_end = v[..., -2:-1, :], v[..., -1:, :]
+        fractions = (
+            torch.arange(1, extra + 1, dtype=v.dtype, device=v.device) / (extra + 1)
+        ).reshape(*([1] * (v.ndim - 2)), extra, 1)
+        interior = seg_start + (seg_end - seg_start) * fractions
+        pad = lambda x: torch.full((*x.shape[:-1], extra), -1, dtype=x.dtype, device=x.device)  # noqa: E731
         return dataclasses.replace(
             self,
-            vertices=self.vertices.reshape(*target, *self.vertices.shape[-2:]),
-            objects=self.objects.reshape(*target, self.objects.shape[-1]),
-            mask=self.mask.reshape(target),
-            interaction_types=self.interaction_types.reshape(
-                *target, self.interaction_types.shape[-1]
+            vertices=torch.cat((v[..., :-1, :], interior, seg_end), dim=-2),
+            objects=torch.cat(
+                (self.objects[..., :-1], pad(self.objects), self.objects[..., -1:]), dim=-1
+            ),
+            interaction_types=torch.cat(
+                (self.interaction_types, pad(self.interaction_types)), dim=-1
             ),
         )
+
+
+def concatenate_paths(batches: Sequence[TracedPaths]) -> TracedPaths:
+    """Join path batches along the candidate (last batch) axis.
+
+    Batches of lower order are first padded to the highest
+    (:meth:`TracedPaths.pad_order`), so that several orders merge into one
+    container. The other batch axes must agree.
+
+    >>> import torch
+    >>> def batch(order, n):
+    ...     return TracedPaths(
+    ...         torch.zeros((n, order + 2, 3)), torch.zeros((n, order + 2), dtype=torch.int64),
+    ...         mask=torch.ones(n, dtype=torch.bool),
+    ...         interaction_types=torch.zeros((n, order), dtype=torch.int32),
+    ...     )
+    >>> merged = concatenate_paths([batch(1, 4), batch(2, 6)])
+    >>> merged.shape, merged.order
+    ((10,), 2)
+    """
+    if not batches:
+        msg = "concatenate_paths needs at least one batch."
+        raise ValueError(msg)
+    target = max(b.order for b in batches)
+    padded = [b.pad_order(target) for b in batches]
+
+    def cat(name: str, trailing: int) -> torch.Tensor:
+        tensors = [getattr(b, name) for b in padded]
+        return torch.cat(tensors, dim=tensors[0].ndim - trailing - 1)
+
+    return dataclasses.replace(
+        padded[0], **{name: cat(name, nd) for name, nd in TracedPaths._TRAILING}
+    )
 
 
 def _squeeze_axes(axis: int | Sequence[int] | None, batch_shape: tuple[int, ...]) -> tuple[int, ...]:

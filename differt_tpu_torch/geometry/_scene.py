@@ -2,6 +2,7 @@
 
 import dataclasses
 import math
+import warnings
 
 import torch
 
@@ -74,36 +75,100 @@ class Scene:
 
     def trace_paths(
         self,
-        order: int | None = None,
+        order=None,
         *,
+        solver="exhaustive",
         path_candidates: torch.Tensor | None = None,
+        merge_orders: bool = False,
         **solver_kwargs,
     ):
-        """Trace exact specular paths between all TX/RX pairs (exhaustive solver).
+        """Trace exact specular paths between all TX/RX pairs.
 
-        ``solver_kwargs`` configure the
-        :class:`~differt_tpu_torch.rt.ExhaustivePathTracer` (tolerances,
-        ``smoothing_factor``, ``megakernel``). Returns :class:`TracedPaths` of batch shape
-        ``[*tx_batch, *rx_batch, num_candidates]``.
+        ``solver`` is ``"exhaustive"``, ``"hybrid"`` (a
+        :class:`~differt_tpu_torch.rt.ExhaustivePathTracer` or
+        :class:`~differt_tpu_torch.rt.HybridPathTracer` built with
+        ``solver_kwargs``: tolerances, ``smoothing_factor``, ``megakernel``,
+        ``chunk_size``, ``num_rays``...) or a tracer instance. Returns
+        :class:`TracedPaths` of batch shape ``[*tx_batch, *rx_batch,
+        num_candidates]``; with a ``chunk_size``, a :class:`SizedIterator`
+        of one per chunk. ``order`` may be a sequence of orders: then a
+        :class:`SizedIterator` of one :class:`TracedPaths` per order (an
+        iterator of one per chunk, with a ``chunk_size``), or with
+        ``merge_orders`` one :class:`TracedPaths` that pads the lower orders
+        to the highest (:func:`concatenate_paths`). The tracer's
+        ``trace_paths`` walks the orders and chunks. ``path_candidates``
+        replaces the candidate generation (the hybrid tracer needs an order).
         """
-        from ..rt._solvers import ExhaustivePathTracer
+        from ..rt._solvers import ExhaustivePathTracer, HybridPathTracer
+        from ._candidates import SizedIterator
+        from ._paths import TracedPaths, concatenate_paths
 
-        if (order is None) == (path_candidates is None):
-            msg = "trace_paths needs exactly one of 'order' and 'path_candidates'."
+        if order is None and path_candidates is None:
+            msg = "trace_paths needs a path 'order' or explicit 'path_candidates'."
             raise ValueError(msg)
-        tracer = ExhaustivePathTracer(**solver_kwargs)
+        if order is not None and path_candidates is not None:
+            msg = "'order' and 'path_candidates' are mutually exclusive; pass only one."
+            raise ValueError(msg)
+
+        tracer = _resolve_solver(
+            solver, {"exhaustive": ExhaustivePathTracer, "hybrid": HybridPathTracer}, solver_kwargs
+        )
+        if isinstance(tracer, HybridPathTracer):
+            if order is None:
+                msg = (
+                    "The hybrid tracer prunes candidates by TX/RX visibility"
+                    " and therefore needs an explicit 'order'."
+                )
+                raise ValueError(msg)
+            if tracer.smoothing_factor is not None:
+                warnings.warn(
+                    "The hybrid tracer's visibility pruning is hard (non-"
+                    "differentiable); its 'smoothing_factor' has no effect.",
+                    UserWarning,
+                    stacklevel=2,
+                )
+
         if path_candidates is not None:
+            if getattr(tracer, "chunk_size", None):
+                warnings.warn(
+                    "Explicit 'path_candidates' bypass candidate generation,"
+                    " so 'chunk_size' has no effect.",
+                    UserWarning,
+                    stacklevel=2,
+                )
             candidates = torch.as_tensor(path_candidates, device=self.mesh.device)
             if self.mesh.assume_quads:
                 # Quad candidates address the even (first) triangle of a pair.
                 candidates = candidates & ~1
             types = torch.zeros_like(candidates, dtype=torch.int32)
-        else:
-            candidates, types = tracer.generate_path_candidates(self, order)
-        return self._batched(
-            tracer.trace_path_candidates(self, candidates, types),
-            candidates.shape[0],
+            return self._batched(
+                tracer.trace_path_candidates(self, candidates, types), candidates.shape[0]
+            )
+
+        def batched(paths: TracedPaths) -> TracedPaths:
+            return self._batched(paths, paths.shape[-1])
+
+        several = not isinstance(order, int)
+        result = tracer.trace_paths(
+            self, list(order) if several else order, chunk_size=getattr(tracer, "chunk_size", None)
         )
+        if isinstance(result, TracedPaths):
+            return batched(result)
+        if several and merge_orders:
+            return batched(concatenate_paths(list(result)))
+        traced = (batched(paths) for paths in result)
+        return SizedIterator(traced, size=len(result)) if isinstance(result, SizedIterator) else traced
+
+    def compute_paths(self, order: int | None = None, *, method="exhaustive", **kwargs):
+        """Deprecated: :meth:`trace_paths` (``method`` "exhaustive" or "hybrid") or :meth:`launch_paths` ("sbr")."""
+        warnings.warn(
+            "compute_paths is deprecated, use trace_paths or launch_paths instead.",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        if method == "sbr":
+            return self.launch_paths(order, solver="sbr", **kwargs)
+        return self.trace_paths(order, solver=method, **kwargs)
 
     def launch_paths(self, order: int | None = None, *, solver="sbr", **solver_kwargs):
         """Launch rays from each TX and keep those passing near the receivers (SBR).

@@ -53,6 +53,17 @@ def orthogonal_basis(u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return v, w
 
 
+def path_length(path: torch.Tensor) -> torch.Tensor:
+    """Total Euclidean length of each ``[*batch, path_length, 3]`` polyline path.
+
+    >>> import torch
+    >>> float(path_length(torch.tensor([[0.0, 0.0, 0.0], [3.0, 0.0, 0.0], [3.0, 4.0, 0.0]])))
+    7.0
+    """
+    segments = path[..., 1:, :] - path[..., :-1, :]
+    return torch.sqrt(_dot(segments, segments)).sum(dim=-1)
+
+
 def cartesian_to_spherical(xyz: torch.Tensor) -> torch.Tensor:
     """Cartesian to spherical ``(r, polar, azimuth)``.
 

@@ -12,12 +12,16 @@ optional ones may be missing or None. Scene keys: ``transmitters``,
 of ``parallel.streamed_placement_step`` beside the scene) has the keys
 ``tx``, ``eta_r``, ``conductivity``, and optionally ``thickness``,
 ``target_power`` and ``path_candidates`` (one ``[C, order]`` array, or a
-list with one array per order).
+list with one array per order). An antenna or radiation pattern has the
+keys ``kind`` (its class name in :mod:`differt_tpu_torch.em`),
+``frequency``, ``center`` and ``direction`` (a pattern's axis), or
+``moment`` and ``length`` (a dipole's).
 """
 
 import numpy as np
 import torch
 
+from . import em
 from .geometry import Mesh, Scene
 
 
@@ -100,3 +104,42 @@ def placement_from_numpy(fields: dict, *, device: torch.device | str | None = No
     elif candidates is not None:
         out["path_candidates"] = _tensor(candidates, torch.int64, device)
     return out
+
+
+_PATTERNS = ("HWDipolePattern", "ShortDipolePattern")
+_DIPOLES = ("Dipole", "ShortDipole")
+
+
+def antenna_from_numpy(fields: dict, *, device: torch.device | str | None = None):
+    """Build an antenna or radiation pattern on ``device`` (the card when None) from a dict of numpy arrays.
+
+    ``kind`` names the class: ``HWDipolePattern`` and
+    ``ShortDipolePattern`` take ``direction``; ``Dipole`` and
+    ``ShortDipole`` take ``moment`` and ``length``, the moment as it is (no
+    current or charge rescales it).
+
+    >>> import numpy as np
+    >>> pattern = antenna_from_numpy(
+    ...     {"kind": "HWDipolePattern", "frequency": 2.4e9, "center": np.zeros(3),
+    ...      "direction": np.array([0.0, 0.0, 1.0])}, device="cpu")
+    >>> type(pattern).__name__, pattern.direction.tolist()
+    ('HWDipolePattern', [0.0, 0.0, 1.0])
+    """
+    if device is None:
+        device = torch.device("cuda")
+    kind = fields["kind"]
+    frequency = _tensor(fields["frequency"], torch.float32, device)
+    center = _tensor(fields.get("center", np.zeros(3)), torch.float32, device)
+    if kind in _PATTERNS:
+        direction = _tensor(fields["direction"], torch.float32, device)
+        return getattr(em, kind)(frequency, direction, center=center)
+    if kind in _DIPOLES:
+        return getattr(em, kind)(
+            frequency,
+            length=_tensor(fields["length"], torch.float32, device),
+            moment=_tensor(fields["moment"], torch.float32, device),
+            current=None,
+            center=center,
+        )
+    msg = f"Unknown antenna kind {kind!r}; expected one of {_PATTERNS + _DIPOLES}."
+    raise ValueError(msg)

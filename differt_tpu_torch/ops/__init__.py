@@ -5,7 +5,8 @@
 - :mod:`._closest`: closest-hit (``csrc/closest.cu``).
 - :mod:`._trace`: the fused specular trace (``csrc/trace.cu``).
 - :mod:`._build`: builds the CUDA sources with ``nvcc`` at first use.
-- :mod:`._dispatch`: the backend switch and the mesh-level entry points.
+- :mod:`._dispatch`: the backend switch and the mesh-level entry points
+  (any hit, closest hit, visibility).
 
 Each wrapper takes its plain version for CPU tensors only; for CUDA
 tensors it launches its kernel or raises. :func:`set_backend` picks the
@@ -17,6 +18,7 @@ from ._closest import first_triangle_hit_by_ray_cuda, first_triangle_hit_by_ray_
 from ._dispatch import (
     dispatch_first_triangle_hit_by_ray,
     dispatch_ray_intersect_any_triangle,
+    dispatch_triangles_visible_from_vertex,
     get_backend,
     set_backend,
 )
@@ -30,6 +32,7 @@ from ._trace import trace_specular_cuda, trace_specular_reference
 __all__ = (
     "dispatch_first_triangle_hit_by_ray",
     "dispatch_ray_intersect_any_triangle",
+    "dispatch_triangles_visible_from_vertex",
     "first_triangle_hit_by_ray_cuda",
     "first_triangle_hit_by_ray_reference",
     "get_backend",

@@ -17,12 +17,20 @@ reference's AND with ``active_rays``.
 The closest-hit contract: an empty mesh gives ``(-1, inf)``; the index
 carries no gradient, and the distance is differentiable through a backward
 that recomputes ``t`` from the frozen hit triangle.
+
+Visibility (:func:`dispatch_triangles_visible_from_vertex`) is a closest
+hit per lattice ray: on the card the rays of several vertices go through
+one closest-hit launch on the mesh's BVH, and the first hits are marked in
+plain PyTorch (a scatter, as in the reference).
 """
 
 import torch
 
+from ..geometry._lattice import fibonacci_lattice
 from ..geometry._vectors import _cross, _dot
+from ..rt._scan import mark_visible, triangles_visible_from_vertex, visibility_frustums
 from ..rt._triangle import F32_EPS
+from . import _closest
 from ._closest import first_triangle_hit_by_ray_cuda, first_triangle_hit_by_ray_reference
 from ._rt import ray_intersect_any_triangle_cuda, ray_intersect_any_triangle_reference
 
@@ -216,3 +224,76 @@ def dispatch_first_triangle_hit_by_ray(
         mesh.bvh if get_backend(device) == "cuda" else None,
     )
     return idx.reshape(batch), t.reshape(batch)
+
+
+VISIBILITY_RAYS = 1 << 25
+"""Most rays of one closest-hit launch of the visibility on the card (whole vertices at a time; about 1.2 GB of rays and results)."""
+
+
+def visibility_groups(num_vertices: int, num_rays: int) -> list[tuple[int, int]]:
+    """The ``(start, stop)`` vertex ranges whose rays share one closest-hit launch.
+
+    >>> visibility_groups(128, 1_000_000)
+    [(0, 33), (33, 66), (66, 99), (99, 128)]
+    """
+    per = max(1, VISIBILITY_RAYS // max(num_rays, 1))
+    return [(lo, min(lo + per, num_vertices)) for lo in range(0, num_vertices, per)]
+
+
+def visibility_rays(mesh, vertex: torch.Tensor, num_rays: int) -> torch.Tensor:
+    """The lattice directions ``[*batch, num_rays, 3]`` of each vertex's visibility rays."""
+    frustum = visibility_frustums(vertex, mesh.triangle_vertices, mesh.mask)
+    return fibonacci_lattice(num_rays, frustum=frustum)
+
+
+def dispatch_triangles_visible_from_vertex(
+    mesh,
+    vertex: torch.Tensor,
+    num_rays: int = int(1e6),
+    *,
+    batch_size: int | None = 512,
+    epsilon: float | None = None,
+) -> torch.Tensor:
+    """Which (active) triangles each ``[*batch, 3]`` vertex sees, ``[*batch, T]`` bool.
+
+    The vertex and the mesh are cut from any graph (the result is
+    boolean). On the "cuda" backend the vertices are taken in the groups
+    of :func:`visibility_groups`, one closest-hit launch each on
+    ``mesh.bvh``; otherwise the plain scan of
+    :func:`~differt_tpu_torch.rt._scan.triangles_visible_from_vertex` runs
+    (``batch_size`` rays at a time), counted in
+    ``ops._closest.REFERENCE_CALLS``.
+    """
+    with torch.no_grad():
+        vertex = torch.as_tensor(vertex, dtype=torch.float32, device=mesh.device).detach()
+        batch = vertex.shape[:-1]
+        num_triangles = mesh.num_triangles
+        if num_triangles == 0:
+            return torch.zeros((*batch, 0), dtype=torch.bool, device=vertex.device)
+        if get_backend(vertex.device) != "cuda":
+            _closest.REFERENCE_CALLS += 1
+            return triangles_visible_from_vertex(
+                vertex,
+                mesh.triangle_vertices.detach(),
+                mesh.mask,
+                num_rays,
+                batch_size,
+                epsilon=epsilon,
+            )
+        flat = vertex.reshape(-1, 3)
+        bvh = mesh.bvh
+        visible = torch.zeros(
+            (flat.shape[0], num_triangles + 1), dtype=torch.bool, device=vertex.device
+        )
+        for lo, hi in visibility_groups(flat.shape[0], num_rays):
+            directions = visibility_rays(mesh, flat[lo:hi], num_rays)
+            origins = flat[lo:hi, None, :].expand_as(directions)
+            idx, _ = first_triangle_hit_by_ray_cuda(
+                origins.reshape(-1, 3).contiguous(),
+                directions.reshape(-1, 3).contiguous(),
+                None,
+                epsilon=epsilon,
+                bvh=bvh,
+            )
+            mark_visible(visible[lo:hi], idx.reshape(hi - lo, num_rays))
+        return visible[:, :num_triangles].reshape(*batch, num_triangles)

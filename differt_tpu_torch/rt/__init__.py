@@ -1,11 +1,13 @@
-"""Ray primitives, the exhaustive specular path tracer, SBR ray launching and the MLM."""
+"""Ray primitives, visibility, the exhaustive and hybrid specular path tracers, SBR ray launching and the MLM."""
 
 from ._image_method import consecutive_vertices_are_on_same_side_of_mirror, image_method
 from ._mlm import compute_tx_mlm
-from ._scan import first_triangle_hit_by_ray, ray_intersect_any_triangle
+from ._scan import first_triangle_hit_by_ray, ray_intersect_any_triangle, triangles_visible_from_vertex
 from ._solvers import (
     AbstractPathLauncher,
+    AbstractPathTracer,
     ExhaustivePathTracer,
+    HybridPathTracer,
     SBRPathLauncher,
     trace_path_candidates,
 )
@@ -13,7 +15,9 @@ from ._triangle import ray_intersect_triangle
 
 __all__ = (
     "AbstractPathLauncher",
+    "AbstractPathTracer",
     "ExhaustivePathTracer",
+    "HybridPathTracer",
     "SBRPathLauncher",
     "compute_tx_mlm",
     "consecutive_vertices_are_on_same_side_of_mirror",
@@ -22,4 +26,5 @@ __all__ = (
     "ray_intersect_any_triangle",
     "ray_intersect_triangle",
     "trace_path_candidates",
+    "triangles_visible_from_vertex",
 )

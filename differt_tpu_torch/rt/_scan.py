@@ -1,18 +1,21 @@
-"""Memory-bounded any-hit and closest-hit scans over all triangles (port of ``differt_tpu.rt._scan``).
+"""Memory-bounded any-hit, closest-hit and visibility scans over all triangles (port of ``differt_tpu.rt._scan``).
 
 These are the plain forms of the any-hit and closest-hit contracts: peak
 memory is bounded at ``batch * tile`` ray-triangle pairs by looping over
 triangle tiles. The kernels' plain versions (``ops/_rt.py``,
 ``ops/_closest.py``) are built on them. With a ``smoothing_factor`` the
 any-hit scan returns a confidence through which gradients flow; it keeps a
-graph of every ray-triangle pair, so it is for small scenes. Visibility is
-not ported yet (ROADMAP A10).
+graph of every ray-triangle pair, so it is for small scenes. Visibility
+launches a lattice of rays from a vertex over its frustum and marks the
+first triangle each ray hits; on the card the mesh-level entry
+(``ops/_dispatch.py``) sends those rays through the closest-hit kernel.
 """
 
 from collections.abc import Callable
 
 import torch
 
+from ..geometry._lattice import fibonacci_lattice, viewing_frustum
 from ..utils import smoothing_function
 from ._triangle import F32_EPS, ray_intersect_triangle
 
@@ -201,3 +204,68 @@ def first_triangle_hit_by_ray(
         best_idx = torch.where(keep | torch.isinf(t_min), best_idx, arg + lo)
         best_t = torch.where(keep, best_t, t_min)
     return best_idx, best_t
+
+
+def visibility_frustums(
+    vertex: torch.Tensor,
+    triangle_vertices: torch.Tensor,
+    active_triangles: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``[*batch, 2, 3]``: the frustum of each ``[*batch, 3]`` vertex over the (active) triangles' corners and centres."""
+    centers = triangle_vertices.mean(dim=-2, keepdim=True)
+    world_vertices = torch.cat((triangle_vertices, centers), dim=-2).reshape(-1, 3)
+    active_vertices = (
+        None if active_triangles is None else active_triangles.repeat_interleave(4)
+    )
+    return viewing_frustum(vertex, world_vertices, active_vertices=active_vertices)
+
+
+def mark_visible(visible: torch.Tensor, hit_indices: torch.Tensor) -> torch.Tensor:
+    """Set ``visible [*batch, T + 1]`` at each ``[*batch, rays]`` first hit; a miss (-1) marks the spare column ``T``."""
+    num_triangles = visible.shape[-1] - 1
+    return visible.scatter_(-1, torch.where(hit_indices < 0, num_triangles, hit_indices), True)
+
+
+def triangles_visible_from_vertex(
+    vertex: torch.Tensor,
+    triangle_vertices: torch.Tensor,
+    active_triangles: torch.Tensor | None = None,
+    num_rays: int = int(1e6),
+    batch_size: int | None = 512,
+    *,
+    epsilon: float | None = None,
+) -> torch.Tensor:
+    """Which triangles each vertex sees, estimated by ray launching, ``[*batch, T]`` bool.
+
+    From each ``[*batch, 3]`` vertex, ``num_rays`` Fibonacci-lattice rays
+    spread over the frustum of the (active) triangles' corners and centres;
+    the first (active) triangle each ray hits is marked visible. Rays go
+    ``batch_size`` at a time; each tile is one closest-hit scan over all
+    ``[T, 3, 3]`` triangles, whose ties at equal ``t`` keep the lowest index.
+
+    >>> import torch
+    >>> from differt_tpu_torch.geometry import Mesh
+    >>> box = Mesh.box(10.0, 10.0, 10.0, with_top=True, device="cpu")
+    >>> inside = triangles_visible_from_vertex(torch.zeros(3), box.triangle_vertices, num_rays=2000)
+    >>> int(inside.sum())  # from inside a closed box, every face
+    12
+    """
+    batch = vertex.shape[:-1]
+    num_triangles = triangle_vertices.shape[0]
+    visible = torch.zeros((*batch, num_triangles + 1), dtype=torch.bool, device=vertex.device)
+    if num_triangles == 0:
+        return visible[..., :0]
+    frustum = visibility_frustums(vertex, triangle_vertices, active_triangles)
+    directions = fibonacci_lattice(num_rays, frustum=frustum)
+    tile = num_rays if batch_size is None else max(min(batch_size, num_rays), 1)
+    for lo in range(0, num_rays, tile):
+        idx, _ = first_triangle_hit_by_ray(
+            vertex[..., None, :],
+            directions[..., lo : lo + tile, :],
+            triangle_vertices,
+            active_triangles,
+            batch_size=None,
+            epsilon=epsilon,
+        )
+        mark_visible(visible, idx)
+    return visible[..., :num_triangles]

@@ -1,8 +1,14 @@
-"""Exhaustive specular path tracing and SBR ray launching (port of ``differt_tpu.rt._solvers``, subset).
+"""Exhaustive and hybrid specular path tracing, and SBR ray launching (port of ``differt_tpu.rt._solvers``).
 
 Exhaustive tracing: candidates are decoded from the closed-form index
 mapping; each batch of candidates goes through the image method, four
-geometric checks and the blockage test. On CUDA tensors with ``order >= 1``
+geometric checks and the blockage test. Hybrid tracing
+(:class:`HybridPathTracer`) first estimates which primitives the
+transmitters and the receivers see (``Mesh.triangles_visible_from_vertex``:
+lattice rays through the closest-hit kernel on the card), keeps the
+candidates that start on one the TX sees and end on one the RX sees (the
+host DFS of :mod:`differt_tpu_torch.native`, or its chunked plain fallback)
+and traces those as the exhaustive tracer does. On CUDA tensors with ``order >= 1``
 and hard masks the whole pipeline runs in the fused trace kernel
 (differentiable through its recompute backward); otherwise it runs
 unfused, with its blockage test on the any-hit kernel (CUDA) or its plain
@@ -17,13 +23,19 @@ within ``sqrt(max_dist)`` of.
 
 import abc
 import dataclasses
+from collections.abc import Iterator, Sequence
 
 import torch
 
-from ..geometry._candidates import generate_path_candidates
+from ..geometry._candidates import (
+    SizedIterator,
+    generate_all_path_candidates_chunks_iter,
+    generate_filtered_path_candidates,
+    generate_path_candidates,
+)
 from ..geometry._lattice import fibonacci_lattice, viewing_frustum
 from ..geometry._mesh import Mesh
-from ..geometry._paths import LaunchedPaths, TracedPaths
+from ..geometry._paths import LaunchedPaths, TracedPaths, concatenate_paths
 from ..geometry._vectors import _cross, _dot, assemble_path
 from ..utils import max_with_initial, min_with_initial, smoothing_function
 from ._image_method import consecutive_vertices_are_on_same_side_of_mirror, image_method
@@ -399,9 +411,89 @@ def _assemble_traced_paths(
     )
 
 
+class AbstractPathTracer(abc.ABC):
+    """Base class of the exact path tracers (candidates, then traced paths).
+
+    Subclasses give :meth:`generate_path_candidates` and
+    :meth:`trace_path_candidates`; both take an order or, for several
+    orders, a sequence of orders (then a tuple per order).
+    """
+
+    @abc.abstractmethod
+    def generate_path_candidates(self, scene, order: int | Sequence[int]):
+        """``(path_candidates, interaction_types)``, each ``[C, order]`` (tuples of them for a sequence of orders)."""
+
+    @abc.abstractmethod
+    def trace_path_candidates(self, scene, path_candidates, interaction_types) -> TracedPaths:
+        """The traced paths ``[num_tx, num_rx, C]`` of the candidates."""
+
+    def generate_path_candidates_chunks_iter(
+        self, scene, order: int | Sequence[int], *, chunk_size: int, pad_chunks: bool = False
+    ) -> SizedIterator:
+        """The candidates of :meth:`generate_path_candidates`, ``chunk_size`` rows at a time.
+
+        With ``pad_chunks`` the last chunk is padded to ``chunk_size`` with -1.
+        """
+        candidates, interactions = self.generate_path_candidates(scene, order)
+        num = candidates.shape[-2]
+        num_chunks, rem = divmod(num, chunk_size)
+
+        def gen() -> Iterator[tuple[torch.Tensor, torch.Tensor]]:
+            for i in range(num_chunks):
+                sl = slice(i * chunk_size, (i + 1) * chunk_size)
+                yield candidates[..., sl, :], interactions[..., sl, :]
+            if rem:
+                tail = (candidates[..., num - rem :, :], interactions[..., num - rem :, :])
+                if pad_chunks:
+                    pad = chunk_size - rem
+                    tail = tuple(
+                        torch.nn.functional.pad(x, (0, 0, 0, pad), value=-1) for x in tail
+                    )
+                yield tail
+
+        return SizedIterator(gen(), size=num_chunks + (1 if rem else 0))
+
+    def trace_paths(
+        self,
+        scene,
+        order: int | Sequence[int],
+        chunk_size: int | None = None,
+        pad_chunks: bool = False,
+    ):
+        """Trace the paths of ``order``: one :class:`TracedPaths`, or an iterator of them.
+
+        A sequence of orders gives a :class:`SizedIterator` of one
+        :class:`TracedPaths` per order (an iterator of one per chunk, with
+        ``chunk_size``); ``chunk_size`` alone gives a :class:`SizedIterator`
+        of one per chunk.
+        """
+        if isinstance(order, Sequence):
+            orders = list(order)
+
+            def gen() -> Iterator[TracedPaths]:
+                for o in orders:
+                    result = self.trace_paths(scene, o, chunk_size=chunk_size, pad_chunks=pad_chunks)
+                    if isinstance(result, TracedPaths):
+                        yield result
+                    else:
+                        yield from result
+
+            return SizedIterator(gen(), size=len(orders)) if chunk_size is None else gen()
+        if chunk_size is not None:
+            chunks = self.generate_path_candidates_chunks_iter(
+                scene, order, chunk_size=chunk_size, pad_chunks=pad_chunks
+            )
+            return SizedIterator(
+                (self.trace_path_candidates(scene, cands, types) for cands, types in chunks),
+                size=len(chunks),
+            )
+        candidates, interactions = self.generate_path_candidates(scene, order)
+        return self.trace_path_candidates(scene, candidates, interactions)
+
+
 @dataclasses.dataclass(frozen=True)
-class ExhaustivePathTracer:
-    """Exhaustive image-method tracer over all candidates, with hard or smoothed checks."""
+class _TracerOptions(AbstractPathTracer):
+    """The options both tracers pass to :func:`trace_path_candidates`, and the tracing of candidates."""
 
     epsilon: float | None = None
     """Tolerance for ray / object intersection checks."""
@@ -415,24 +507,18 @@ class ExhaustivePathTracer:
     """Confidence from which a path with a smoothed mask counts as valid."""
     batch_size: int | None = 512
     """Triangle tile of the smoothed blockage sum."""
+    chunk_size: int | None = None
+    """Candidates per chunk of ``Scene.trace_paths`` (None: all at once)."""
     megakernel: bool | None = None
     """Force the fused trace kernel on or off (None: on for the "cuda" backend, order >= 1, hard checks)."""
 
-    def generate_path_candidates(
-        self, scene, order: int
-    ) -> tuple[torch.Tensor, torch.Tensor]:
-        """All ``[C, order]`` candidates of the scene's mesh and their (zero) types."""
-        mesh = scene.mesh
-        candidates = generate_path_candidates(
-            mesh.num_primitives, order, device=mesh.device
-        )
-        if mesh.assume_quads:
-            candidates = 2 * candidates
-        return candidates, torch.zeros_like(candidates, dtype=torch.int32)
-
-    def trace_path_candidates(
-        self, scene, path_candidates: torch.Tensor, interaction_types: torch.Tensor
-    ) -> TracedPaths:
+    def trace_path_candidates(self, scene, path_candidates, interaction_types) -> TracedPaths:
+        """Trace ``[C, order]`` candidates (or a tuple of them, one per order, merged by :func:`concatenate_paths`)."""
+        if isinstance(path_candidates, tuple):
+            return concatenate_paths([
+                self.trace_path_candidates(scene, c, t)
+                for c, t in zip(path_candidates, interaction_types, strict=True)
+            ])
         return trace_path_candidates(
             scene.mesh,
             scene.transmitters.reshape(-1, 3),
@@ -447,6 +533,130 @@ class ExhaustivePathTracer:
             batch_size=self.batch_size,
             megakernel=self.megakernel,
         )
+
+
+def _quad_mask(mesh) -> torch.Tensor | None:
+    """The mesh's active mask per primitive (a quad is active when both its triangles are)."""
+    if mesh.mask is None or not mesh.assume_quads:
+        return mesh.mask
+    return mesh.mask[0::2] & mesh.mask[1::2]
+
+
+@dataclasses.dataclass(frozen=True)
+class ExhaustivePathTracer(_TracerOptions):
+    """Exhaustive image-method tracer over all candidates, with hard or smoothed checks."""
+
+    disconnect_inactive_triangles: bool = False
+    """Drop the candidates that touch a masked-out primitive before tracing."""
+
+    def generate_path_candidates(self, scene, order: int | Sequence[int]):
+        """All ``[C, order]`` candidates of the scene's mesh and their (zero) types; a tuple of each for several orders."""
+        if isinstance(order, Sequence):
+            per_order = [self.generate_path_candidates(scene, o) for o in order]
+            return tuple(c for c, _ in per_order), tuple(t for _, t in per_order)
+        mesh = scene.mesh
+        if self.disconnect_inactive_triangles and mesh.mask is not None and order > 0:
+            mask = _quad_mask(mesh)
+            candidates = generate_filtered_path_candidates(
+                mesh.num_primitives, order, lambda chunk: mask[chunk].all(dim=-1), device=mesh.device
+            )
+        else:
+            candidates = generate_path_candidates(mesh.num_primitives, order, device=mesh.device)
+        if mesh.assume_quads:
+            candidates = 2 * candidates
+        return candidates, torch.zeros_like(candidates, dtype=torch.int32)
+
+    def generate_path_candidates_chunks_iter(
+        self,
+        scene,
+        order: int | Sequence[int],
+        *,
+        chunk_size: int | None = None,
+        pad_chunks: bool = False,
+    ) -> SizedIterator:
+        """The candidates ``chunk_size`` (or :attr:`chunk_size`) at a time, each chunk decoded on the mesh's device."""
+        effective = chunk_size or self.chunk_size
+        if effective is None:
+            return SizedIterator(iter([self.generate_path_candidates(scene, order)]), size=1)
+        if isinstance(order, Sequence):
+            iters = [
+                self.generate_path_candidates_chunks_iter(
+                    scene, o, chunk_size=effective, pad_chunks=pad_chunks
+                )
+                for o in order
+            ]
+            return SizedIterator(
+                (chunk for it in iters for chunk in it), size=sum(len(it) for it in iters)
+            )
+        mesh = scene.mesh
+        chunks = generate_all_path_candidates_chunks_iter(
+            mesh.num_primitives, order, effective, device=mesh.device
+        )
+
+        def gen() -> Iterator[tuple[torch.Tensor, torch.Tensor]]:
+            for chunk in chunks:
+                if pad_chunks and chunk.shape[0] < effective:
+                    chunk = torch.nn.functional.pad(chunk, (0, 0, 0, effective - chunk.shape[0]), value=-1)
+                if mesh.assume_quads:
+                    chunk = 2 * chunk
+                yield chunk, torch.zeros_like(chunk, dtype=torch.int32)
+
+        return SizedIterator(gen(), size=len(chunks))
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridPathTracer(_TracerOptions):
+    """Visibility pruning, then exact tracing of the candidates that survive.
+
+    A candidate survives when the transmitters see its first primitive,
+    the receivers its last, and every primitive is active. Visibility is
+    estimated with ``num_rays`` lattice rays per vertex
+    (``Mesh.triangles_visible_from_vertex``); the survivors are enumerated
+    by the host DFS of :mod:`differt_tpu_torch.native`, or by its chunked
+    plain fallback where the DFS cannot be built. Pruning is hard: a
+    ``smoothing_factor`` smooths the trace only.
+    """
+
+    num_rays: int = int(1e6)
+    """Visibility rays launched from each transmitter and each receiver."""
+
+    def _visibility(self, scene) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+        """``[num_primitives]`` masks: seen from a TX, seen from an RX, active (or None)."""
+        mesh = scene.mesh
+        visible_tx = mesh.triangles_visible_from_vertex(
+            scene.transmitters.reshape(-1, 3), num_rays=self.num_rays
+        ).any(dim=0)
+        visible_rx = mesh.triangles_visible_from_vertex(
+            scene.receivers.reshape(-1, 3), num_rays=self.num_rays
+        ).any(dim=0)
+        if mesh.assume_quads:
+            visible_tx = visible_tx.reshape(-1, 2).any(dim=-1)
+            visible_rx = visible_rx.reshape(-1, 2).any(dim=-1)
+        return visible_tx, visible_rx, _quad_mask(mesh)
+
+    def generate_path_candidates(self, scene, order: int | Sequence[int]):
+        """The ``[C, order]`` candidates that survive the visibility pruning, and their (zero) types."""
+        if isinstance(order, Sequence):
+            per_order = [self.generate_path_candidates(scene, o) for o in order]
+            return tuple(c for c, _ in per_order), tuple(t for _, t in per_order)
+        from .. import native
+
+        mesh = scene.mesh
+        visible_tx, visible_rx, mask = self._visibility(scene)
+        if order > 0:
+            enumerate_ = (
+                native.filtered_path_candidates
+                if native.is_available()
+                else native.filtered_path_candidates_chunked
+            )
+            candidates = enumerate_(
+                mesh.num_primitives, order, visible_tx, visible_rx, mask, device=mesh.device
+            )
+        else:
+            candidates = generate_path_candidates(mesh.num_primitives, order, device=mesh.device)
+        if mesh.assume_quads:
+            candidates = 2 * candidates
+        return candidates, torch.zeros_like(candidates, dtype=torch.int32)
 
 
 class AbstractPathLauncher(abc.ABC):
@@ -584,3 +794,11 @@ class SBRPathLauncher(AbstractPathLauncher):
             [fibonacci_lattice(self.num_rays, frustum=f) for f in frustums]
         )
         return ray_origins, ray_directions
+
+
+_SOLVER_REGISTRY = {
+    "exhaustive": ExhaustivePathTracer,
+    "hybrid": HybridPathTracer,
+    "sbr": SBRPathLauncher,
+}
+"""The solvers' shortcut names."""

@@ -16,7 +16,7 @@ import torch
 from differt_tpu_torch import ops, scenes
 from differt_tpu_torch.geometry import Scene, fibonacci_lattice, generate_path_candidates
 from differt_tpu_torch.ops import _build, _bvh, _closest, _rt, _trace
-from differt_tpu_torch.rt import ray_intersect_triangle, trace_path_candidates
+from differt_tpu_torch.rt import first_triangle_hit_by_ray, ray_intersect_triangle, trace_path_candidates
 from differt_tpu_torch.rt._solvers import candidate_geometry
 
 from .torch_parity import EPSILON, HIT_TOL, cuda_or_skip, random_segments, triangle_mask
@@ -463,3 +463,97 @@ def test_compute_tx_mlm_through_the_kernel(torch_backend) -> None:
     assert lit > 0
     # Cells that a tie ray reaches may differ: at most 0.1% of the lit cells.
     assert int((mlm != plain).sum()) <= max(1, lit // 1000)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_visibility_through_the_closest_kernel(masked: bool, torch_backend, monkeypatch) -> None:
+    from differt_tpu_torch.ops import _dispatch
+    from differt_tpu_torch.rt._scan import mark_visible
+
+    device = cuda_or_skip()
+    scene = _street_scene(device)
+    mesh = scene.mesh
+    if masked:
+        mesh = mesh.set_mask(torch.from_numpy(triangle_mask(mesh.num_triangles, 41)).to(device))
+    tv, mask = mesh.triangle_vertices.contiguous(), mesh.mask
+    vertices = torch.cat((scene.transmitters, scene.receivers.reshape(-1, 3)))  # 10 vertices
+    num_rays = 20_000
+    launches, calls, builds = _closest.LAUNCHES, _closest.REFERENCE_CALLS, _bvh.BUILDS
+    got = mesh.triangles_visible_from_vertex(vertices, num_rays=num_rays)
+    torch.cuda.synchronize()
+    # 200,000 rays: one launch, on the mesh's BVH, built once.
+    assert (_closest.LAUNCHES, _closest.REFERENCE_CALLS, _bvh.BUILDS) == (launches + 1, calls, builds + 1)
+    # The same rays through the kernel and its plain version: t bit-equal,
+    # and every index that differs is the tie key's winner.
+    d = _dispatch.visibility_rays(mesh, vertices, num_rays).reshape(-1, 3).contiguous()
+    o = vertices[:, None, :].expand(-1, num_rays, 3).reshape(-1, 3).contiguous()
+    idx, t = _closest.first_triangle_hit_by_ray_cuda(o, d, None, bvh=mesh.bvh)
+    want_idx, want_t = _closest.first_triangle_hit_by_ray_reference(o, d, tv, mask)
+    assert torch.equal(t, want_t)
+    differ = idx != want_idx
+    winner = _closest.tie_key_winner(o[differ], d[differ], tv, mask, want_t[differ], mesh.bvh.positions)
+    assert torch.equal(idx[differ], winner)
+    marked = torch.zeros((10, mesh.num_triangles + 1), dtype=torch.bool, device=device)
+    mark_visible(marked, idx.reshape(10, num_rays))
+    assert torch.equal(marked[:, :-1], got)
+    assert bool(got.any(dim=-1).all()) and not bool(got.all())
+    # Groups of two vertices: five launches, the same marks.
+    monkeypatch.setattr(_dispatch, "VISIBILITY_RAYS", 2 * num_rays)
+    launches = _closest.LAUNCHES
+    assert torch.equal(mesh.triangles_visible_from_vertex(vertices, num_rays=num_rays), got)
+    assert _closest.LAUNCHES == launches + 5
+    # The plain version on the card (counted) scans all triangles at once,
+    # the lowest index winning a tie: the marks differ only on triangles
+    # that tie rays alone reach.
+    torch_backend()
+    calls = _closest.REFERENCE_CALLS
+    plain = mesh.triangles_visible_from_vertex(vertices, num_rays=num_rays)
+    assert _closest.REFERENCE_CALLS == calls + 1
+    scans = [
+        first_triangle_hit_by_ray(o[lo : lo + num_rays], d[lo : lo + num_rays], tv, mask, batch_size=None)
+        for lo in range(0, o.shape[0], num_rays)
+    ]
+    scan_idx = torch.cat([idx_ for idx_, _ in scans])
+    assert torch.equal(torch.cat([t_ for _, t_ in scans]), t)
+    plain_marks = torch.zeros_like(marked)
+    mark_visible(plain_marks, scan_idx.reshape(10, num_rays))
+    assert torch.equal(plain_marks[:, :-1], plain)
+    tie = idx != scan_idx
+    tie_only = torch.zeros_like(marked)
+    for hits in (idx, scan_idx):  # both winners of each tie ray
+        mark_visible(tie_only, torch.where(tie, hits, -1).reshape(10, num_rays))
+    assert not bool(((plain != got) & ~tie_only[:, :-1]).any())
+
+
+def test_native_dfs_builds_and_fills_card_tensors() -> None:
+    from differt_tpu_torch import native
+
+    device = cuda_or_skip()
+    assert native.is_available() and native.library_path().is_file()
+    rng = np.random.default_rng(5)
+    masks = [torch.from_numpy(rng.random(300) >= 0.5).to(device) for _ in range(3)]
+    got = native.filtered_path_candidates(300, 2, *masks, device=device)
+    assert got.device.type == "cuda" and got.dtype == torch.int64
+    assert torch.equal(got, native.filtered_path_candidates_chunked(300, 2, *masks, device=device))
+
+
+def test_hybrid_order_1_uses_the_kernels_only() -> None:
+    from differt_tpu_torch import coverage, native
+    from differt_tpu_torch.rt import HybridPathTracer
+
+    device = cuda_or_skip()
+    scene = _street_scene(device)
+    tracer = HybridPathTracer(num_rays=20_000)
+    candidates, _ = tracer.generate_path_candidates(scene, 1)
+    chunks = -(-candidates.shape[0] // 4096)
+    run = dataclasses.replace(scene, mesh=dataclasses.replace(scene.mesh))
+    counts = (_closest.LAUNCHES, _closest.REFERENCE_CALLS, _trace.LAUNCHES, _trace.REFERENCE_CALLS,
+              _rt.LAUNCHES, _rt.REFERENCE_CALLS, _bvh.BUILDS, native.CALLS, native.FALLBACK_CALLS)
+    power = coverage.power_map_chunked(run, 2.4e9, order=1, solver=tracer, coherent=False)
+    torch.cuda.synchronize()
+    now = (_closest.LAUNCHES, _closest.REFERENCE_CALLS, _trace.LAUNCHES, _trace.REFERENCE_CALLS,
+           _rt.LAUNCHES, _rt.REFERENCE_CALLS, _bvh.BUILDS, native.CALLS, native.FALLBACK_CALLS)
+    # Visibility: one launch for the TX, one for the 9 receivers; the trace a chunk.
+    assert tuple(b - a for a, b in zip(counts, now)) == (2, 0, chunks, 0, 0, 0, 1, 1, 0)
+    exhaustive = coverage.power_map_chunked(scene, 2.4e9, order=1, coherent=False)
+    assert bool((power > 0).any()) and bool((power <= exhaustive * (1 + 1e-5)).all())

@@ -10,7 +10,8 @@ sys.modules["jax"] = None  # any `import jax` now raises ImportError
 import torch
 torch.set_num_threads(1)
 import differt_tpu_torch
-from differt_tpu_torch.coverage import power_map
+from differt_tpu_torch.coverage import power_map, power_map_chunked
+from differt_tpu_torch.em import HWDipolePattern
 from differt_tpu_torch.geometry import Scene, generate_path_candidates
 from differt_tpu_torch.parallel import placement_training_step, streamed_placement_step
 from differt_tpu_torch.scenes import street_canyon_scene
@@ -23,6 +24,13 @@ assert power.shape == (1, 8, 8), power.shape
 assert bool(torch.isfinite(power).all()) and float(power.max()) > 0.0
 paths = scene.launch_paths(order=2, num_rays=2000, max_dist=4.0)
 assert paths.masks.shape == (1, 8, 8, 2000, 3) and bool(paths.masks.any())
+hybrid = power_map(scene, 2.4e9, order=1, solver="hybrid", num_rays=2000)
+assert hybrid.shape == (1, 8, 8) and bool(torch.isfinite(hybrid).all()) and float(hybrid.max()) > 0.0
+pattern = HWDipolePattern(2.4e9, direction=(0.0, 0.0, 1.0), center=scene.transmitters[0])
+dipole = power_map_chunked(scene, 2.4e9, order=1, tx_pattern=pattern, candidate_chunk=16, rx_chunk=32)
+assert dipole.shape == (1, 8, 8) and bool(torch.isfinite(dipole).all()) and float(dipole.max()) > 0.0
+merged = scene.trace_paths(order=[0, 1], merge_orders=True)
+assert merged.order == 1 and merged.shape == (1, 8, 8, 1 + scene.mesh.num_triangles)
 mlm = scene.compute_tx_mlm(num_rays=2000, order=2, grid_size=(16, 16), receiver_plane_z=1.5)
 assert mlm.shape == (1, 16, 16) and len(torch.unique(mlm)) > 3
 candidates = [generate_path_candidates(scene.mesh.num_triangles, o, device="cpu")[:40] for o in (1, 2)]

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from differt_tpu_torch.interop import placement_from_numpy, scene_from_numpy
+from differt_tpu_torch.interop import antenna_from_numpy, placement_from_numpy, scene_from_numpy
 
 F32_EPS = float(np.finfo(np.float32).eps)
 EPSILON = 10.0 * F32_EPS
@@ -41,6 +41,26 @@ def jax_scene_fields(scene) -> dict:
 def to_torch_scene(scene, device: str = "cpu"):
     """Carry a JAX scene across to the port."""
     return scene_from_numpy(jax_scene_fields(scene), device=device)
+
+
+def jax_antenna_fields(antenna) -> dict:
+    """The fields of a JAX antenna or radiation pattern as the dict that ``interop`` takes."""
+    fields = {
+        "kind": type(antenna).__name__,
+        "frequency": _np(antenna.frequency),
+        "center": _np(antenna.center),
+    }
+    if hasattr(antenna, "direction"):
+        fields["direction"] = _np(antenna.direction)
+    else:
+        fields["moment"] = _np(antenna.moment)
+        fields["length"] = _np(antenna.length)
+    return fields
+
+
+def to_torch_antenna(antenna, device: str = "cpu"):
+    """Carry a JAX antenna or radiation pattern across to the port."""
+    return antenna_from_numpy(jax_antenna_fields(antenna), device=device)
 
 
 def placement_for(module, fields: dict, device: str = "cpu") -> dict:
