@@ -37,6 +37,13 @@ version, and drives three paths, each counted from zero:
   against the exhaustive order-1 map;
 - antenna patterns (phase 16): the coverage path's call with a half-wave
   dipole at the TX, against the plain versions and the pattern's gain;
+- first-order diffraction (phase 17): ``power_map(order=1,
+  with_diffraction=True)`` on the coverage path's scene (20,736 edges x 128
+  receivers), the specular half through the fused trace kernel and every
+  diffraction segment's blockage through one any-hit launch, its TX
+  gradient, the canyon's central difference, the kernel against its plain
+  version on 8 receivers' segments and maps, and the Fresnel integrals
+  against SciPy;
 
 and checks that each path call went through its kernels, never through
 their plain versions, and built its mesh's BVH once. Then it profiles
@@ -87,6 +94,12 @@ SMOOTHING = 50.0
 VIS_RAYS = 1_000_000  # the reference's default num_rays, for visibility and the hybrid tracer
 VIS_CHECKED_RX = 8  # receivers whose rays phase 14 holds against the plain closest hit, beside the TX
 HW_DIPOLE_GAIN = 1.640922376984585  # 4 / Cin(2 pi), the half-wave dipole pattern's peak
+DIFF_CHECKED_RX = 8  # receivers whose diffraction segments and map phase 17 holds against the plain versions
+# m: the canyon's central difference along the TX gradient (phase 17). The
+# coherent map's phases turn by k = 50 rad/m as the TX moves: a step of 1 cm
+# costs the central difference 1-2% (its h^2 term), 3 mm about 0.2%, and
+# float32's noise stays below 0.5% there (a CPU run of the same check).
+FD_STEP = 0.003
 
 
 def cuda_ms(fn, repeats: int) -> float:
@@ -544,9 +557,10 @@ def run_ray_launching(device, kernels: dict) -> dict:
     return {"scene": scene, "sbr": sbr, "mlm": mlm}
 
 
-def profile(label: str, fn, kernel_names: tuple[str, ...]) -> None:
+def profile(label: str, fn, kernel_names: tuple[str, ...]) -> dict:
     """Phase 8: one warm call of a path under torch.profiler: device busy
-    share, each port kernel's launches and mean device time, the top kernels."""
+    share, each port kernel's launches and mean device time, the top kernels.
+    Returns ``{kernel name: (launches, mean ms)}`` of ``kernel_names``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -561,17 +575,18 @@ def profile(label: str, fn, kernel_names: tuple[str, ...]) -> None:
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not events:
         print(f"phase 8 profile {label}: the profiler saw no device time", flush=True)
-        return
+        return {}
     busy_us = sum(e.time_range.elapsed_us() for e in events)
     by_name: dict[str, list[float]] = {}
     for e in events:
         by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
-    ours = {
-        k: f"{len(v)} launches, {sum(v) / len(v) / 1e3:.4f} ms each"
+    per_kernel = {
+        k: (len(v), sum(v) / len(v) / 1e3)
         for k in kernel_names
         for name, v in by_name.items()
         if k in name
     }
+    ours = {k: f"{n} launches, {ms:.4f} ms each" for k, (n, ms) in per_kernel.items()}
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:6]
     top_text = "; ".join(
         f"{name[:70]} {sum(v) / 1e3:.2f} ms ({100 * sum(v) / busy_us:.0f}%, {len(v)})"
@@ -583,6 +598,7 @@ def profile(label: str, fn, kernel_names: tuple[str, ...]) -> None:
         f" ours={json.dumps(ours)} top: {top_text}",
         flush=True,
     )
+    return per_kernel
 
 
 # -- The gradient path ----------------------------------------------------------
@@ -1517,6 +1533,277 @@ def run_patterns(city, kernels: dict, runs, coverage_run, iso: dict) -> dict:
     return {"hw": hw}
 
 
+# -- First-order diffraction --------------------------------------------------
+
+
+def non_manifold_edges(mesh) -> int:
+    """Vertex pairs that more than two of the mesh's faces share, counted apart from the port's warning."""
+    tri = mesh.triangles
+    pairs = torch.stack((tri[:, [0, 1]], tri[:, [1, 2]], tri[:, [2, 0]]), dim=1).reshape(-1, 2)
+    _, counts = torch.unique(torch.sort(pairs, dim=-1).values, dim=0, return_counts=True)
+    return int((counts > 2).sum())
+
+
+def diffraction_segments(tx: torch.Tensor, rx: torch.Tensor, edges: torch.Tensor):
+    """The any-hit kernel's inputs of the diffraction blockage call, made by the path's own helpers."""
+    from differt_tpu_torch.ops._dispatch import anyhit_segments
+    from differt_tpu_torch.rt._diffraction import keller_paths
+
+    paths, _ = keller_paths(tx, rx, edges)
+    return anyhit_segments(paths[..., :-1, :], paths[..., 1:, :] - paths[..., :-1, :])
+
+
+def canyon_fd_check(device, materials: dict) -> tuple[float, float, float]:
+    """The diffraction map's TX gradient on the street canyon against a central
+    difference along it: ``(directional derivative, difference, relative gap)``."""
+    from differt_tpu_torch import coverage, scenes
+    from differt_tpu_torch.geometry import Scene
+
+    rx = torch.tensor([[x, y, 1.5] for x in (-20.0, 0.0, 20.0, 35.0) for y in (-3.0, 3.0)], device=device)
+    canyon = Scene(
+        transmitters=torch.tensor([[-30.0, 0.0, 20.0]], device=device),
+        receivers=rx,
+        mesh=scenes.street_canyon_scene(device=device).mesh,
+    )
+
+    def total(tx):
+        scene = dataclasses.replace(canyon, transmitters=tx)
+        return coverage.power_map(scene, FREQUENCY, order=1, with_diffraction=True, **materials).double().sum()
+
+    tx = canyon.transmitters.clone().requires_grad_()
+    (grad,) = torch.autograd.grad(total(tx), tx)
+    direction = grad / grad.norm()
+    with torch.no_grad():
+        fd = float((total(tx + FD_STEP * direction) - total(tx - FD_STEP * direction)) / (2.0 * FD_STEP))
+    slope = float((grad * direction).sum())
+    return slope, fd, abs(slope - fd) / abs(fd)
+
+
+def run_diffraction(city, kernels: dict, materials: dict) -> None:
+    """Phase 17: ``power_map(order=1, with_diffraction=True)`` on a fresh
+    copy of the coverage scene (20,738 triangles, 128 street receivers),
+    counted: ``trace.cu`` for the specular half, one ``anyhit.cu`` launch
+    for the blockage of every diffraction segment, one BVH build (the
+    deduplicated mesh takes the scene mesh's). Then its parts timed apart,
+    its TX gradient, the canyon's central difference, the edges against a
+    CPU extraction, the kernel against its plain version on 8 receivers'
+    segments and maps, the Fresnel integrals against SciPy, and
+    ``anyhit.cu`` timed at the path's shape."""
+    import warnings
+
+    from scipy import special
+
+    from differt_tpu_torch import coverage, ops
+    from differt_tpu_torch.em import fresnel, z_0
+    from differt_tpu_torch.ops import _rt
+    from differt_tpu_torch.rt._diffraction import _trace_diffraction, diffraction_amplitudes
+
+    device = city.mesh.device
+    num_rx = city.num_receivers
+    tx = city.transmitters.reshape(-1, 3)
+    rx = city.receivers.reshape(-1, 3)
+
+    def diffraction_map(scene):
+        return coverage.power_map(scene, FREQUENCY, order=1, with_diffraction=True, **materials)
+
+    diffraction_map(fresh(city))  # warm-up: the first CUDA call of each complex op compiles it
+    want = {"anyhit": 1, "trace": 1, "bvh_builds": 1}
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        power, wall, card_ms, counts = counted_call("diffraction map", lambda: diffraction_map(fresh(city)), want)
+    peak = torch.cuda.max_memory_allocated() - base
+    if not torch.isfinite(power).all():
+        msg = "the diffraction map is not finite"
+        raise AssertionError(msg)
+
+    # The same map in its parts, timed apart (CUDA events), and recomposed.
+    scene = fresh(city)
+    frequency = torch.tensor(FREQUENCY, device=device)
+    eta_r, conductivity, thickness = coverage._resolve_materials(
+        scene, frequency, materials["eta_r"], materials["conductivity"], None
+    )
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    events[0].record()
+    paths = scene.trace_paths(order=1)
+    a_spec = coverage.complex_amplitudes(
+        paths.reshape(1, num_rx, -1), scene, frequency, eta_r=eta_r, conductivity=conductivity, thickness=thickness
+    )
+    events[1].record()
+    mesh = scene.mesh.dedup_vertices()
+    edges, adjacent, wedge_n = mesh._diffraction_edges_info()
+    events[2].record()
+    diff_paths = _trace_diffraction(mesh, tx, rx, edges, hit_tol=None, min_len=None)
+    events[3].record()
+    a_diff = diffraction_amplitudes(
+        diff_paths.reshape(1, num_rx, -1), scene, frequency, edges=edges, adjacent_triangles=adjacent, wedge_n=wedge_n
+    )
+    events[4].record()
+    torch.cuda.synchronize()
+    split = {
+        name: events[i].elapsed_time(events[i + 1])
+        for i, name in enumerate(("specular_half", "edge_extraction", "keller_points_and_blockage", "utd_amplitudes"))
+    }
+    recomposed = (torch.abs(a_spec.sum(-1) + a_diff.sum(-1)) ** 2 / z_0).reshape(power.shape)
+    recomposed_err = db_error(recomposed, power)
+    num_edges = edges.shape[0]
+    valid = int(diff_paths.mask.sum())
+    non_manifold = non_manifold_edges(mesh)
+    warned = [str(w.message) for w in caught if "non-manifold" in str(w.message)]
+    spec_power = float((torch.abs(a_spec) ** 2).sum())
+    diff_power = float((torch.abs(a_diff) ** 2).sum())
+    specular_map = (torch.abs(a_spec.sum(-1)) ** 2 / z_0).reshape(power.shape)
+    lit, lit_specular = int((power > 0).sum()), int((specular_map > 0).sum())
+    if not valid or not recomposed_err <= 1e-4:
+        msg = f"the diffraction map has {valid} valid diffraction paths; its parts recompose it within {recomposed_err} dB"
+        raise AssertionError(msg)
+    if bool(non_manifold) != bool(warned):
+        msg = f"{non_manifold} non-manifold edges, but the port warned {warned}"
+        raise AssertionError(msg)
+
+    # The edges on the card against the same extraction on the CPU.
+    cpu_mesh = dataclasses.replace(city.mesh, vertices=city.mesh.vertices.cpu(), triangles=city.mesh.triangles.cpu())
+    cpu_edges, cpu_adjacent, cpu_wedge = cpu_mesh.dedup_vertices()._diffraction_edges_info()
+    if not (
+        torch.equal(cpu_edges, edges.cpu())
+        and torch.equal(cpu_adjacent, adjacent.cpu())
+        and float((cpu_wedge - wedge_n.cpu()).abs().max()) <= 1e-6
+    ):
+        msg = "the edges extracted on the card differ from those extracted on the CPU"
+        raise AssertionError(msg)
+
+    # The TX gradient at full width, then the canyon's central difference.
+    tx_grad = city.transmitters.clone().requires_grad_()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+
+    def gradient():
+        scene = dataclasses.replace(fresh(city), transmitters=tx_grad)
+        return torch.autograd.grad(diffraction_map(scene).sum(), tx_grad)[0]
+
+    grad, grad_wall, _, _ = counted_call("diffraction map gradient", gradient, want)
+    grad_peak = torch.cuda.max_memory_allocated() - base
+    if not (torch.isfinite(grad).all() and grad.abs().max() > 0):
+        msg = f"the diffraction map's TX gradient is {grad.tolist()}"
+        raise AssertionError(msg)
+    slope, fd, fd_gap = canyon_fd_check(device, materials)
+    if not fd_gap <= 0.02:
+        msg = f"the canyon's TX gradient along itself is {slope}, its central difference {fd} ({fd_gap:.3%} apart)"
+        raise AssertionError(msg)
+
+    # The kernel against its plain version on 8 receivers' diffraction
+    # segments, bit for bit, and their maps within 0.01 dB.
+    rx8 = rx[:: num_rx // DIFF_CHECKED_RX]
+    bvh = mesh.bvh
+    tv = mesh.triangle_vertices.contiguous()
+    o8, d8, th8 = diffraction_segments(tx, rx8, edges)
+    got = _rt.ray_intersect_any_triangle_cuda(o8, d8, None, hit_threshold=th8, bvh=bvh)
+    want8 = _rt.ray_intersect_any_triangle_reference(o8, d8, tv, None, hit_threshold=th8)
+    if mismatches := int((got != want8).sum()):
+        msg = f"the any-hit kernel disagrees with its plain version on {mismatches} diffraction segments"
+        raise AssertionError(msg)
+    plain_ms = once_ms(lambda: _rt.ray_intersect_any_triangle_reference(o8, d8, tv, None, hit_threshold=th8))
+    scene8 = dataclasses.replace(city, receivers=rx8)
+    kernel_map = diffraction_map(fresh(scene8))
+    ops.set_backend("torch")
+    try:
+        plain_map = diffraction_map(fresh(scene8))
+    finally:
+        ops.set_backend("auto")
+    map_err = db_error(kernel_map, plain_map)
+    if not map_err <= 0.01:
+        msg = f"the 8 receivers' diffraction map differs from the plain run by {map_err} dB"
+        raise AssertionError(msg)
+
+    # The Fresnel integrals on the card against SciPy's, and their gradient.
+    x = torch.linspace(-10.0, 10.0, 1_000_000, device=device, requires_grad=True)
+    s, c = fresnel(x)
+    s_ref, c_ref = special.fresnel(x.detach().double().cpu().numpy())
+    fresnel_err = max(
+        float(np.abs(s.detach().cpu().numpy() - s_ref).max()), float(np.abs(c.detach().cpu().numpy() - c_ref).max())
+    )
+    (g_s,) = torch.autograd.grad(s.sum(), x, retain_graph=True)
+    (g_c,) = torch.autograd.grad(c.sum(), x)
+    arg = 0.5 * np.pi * x.detach().double().cpu().numpy() ** 2
+    fresnel_grad_err = max(
+        float(np.abs(g_s.cpu().numpy() - np.sin(arg)).max()), float(np.abs(g_c.cpu().numpy() - np.cos(arg)).max())
+    )
+    if not (fresnel_err <= 1e-6 and fresnel_grad_err <= 1e-5):
+        msg = f"the Fresnel integrals are {fresnel_err} off SciPy's, their gradient {fresnel_grad_err} off the integrands"
+        raise AssertionError(msg)
+
+    # anyhit.cu at the path's shape: all 128 receivers' segments.
+    o, d, th = diffraction_segments(tx, rx, edges)
+    num = o.shape[0]
+    out = torch.empty(num, dtype=torch.bool, device=device)
+    eps = TRACE_KW["epsilon"]
+    kernel_ms = cuda_ms(lambda: _rt.launch_anyhit(o, d, th, bvh, eps, out), 5)
+    ms = cuda_ms(lambda: _rt.ray_intersect_any_triangle_cuda(o, d, None, hit_threshold=th, bvh=bvh), 5)
+    blocked = int(out.sum())
+    live = int((th >= 0).sum())
+    bound_ms, bound_by = bound(num * 29 + mesh_bytes(tv, None), live * MT_FLOPS)
+    on_path = profile(
+        "diffraction map (order 1 + diffraction)",
+        lambda: diffraction_map(city),
+        ("compact_kernel", "anyhit_kernel", "trace_kernel"),
+    )
+    on_path_ms = on_path.get("anyhit_kernel", (0, float("nan")))[1]
+
+    kernels["anyhit"]["launches_by_path"] = {
+        "coverage_and_patterns": kernels["anyhit"]["launches"],
+        "diffraction_map": counts["anyhit"],
+    }
+    kernels["anyhit"]["launches"] += counts["anyhit"]
+    kernels["trace"]["launches"] += counts["trace"]
+    kernels["trace"]["launches_by_path"]["diffraction_map"] = counts["trace"]
+    kernels["anyhit"]["diffraction"] = {
+        "shape": f"diffraction blockage: {num} segments x {tv.shape[0]} triangles",
+        "launches": counts["anyhit"],
+        "max_abs_err": 0.0,
+        "kernel_only_ms": kernel_ms,
+        "ms": ms,
+        "on_path_ms": on_path_ms,
+        "plain_ms": plain_ms,
+        "plain_shape": f"{o8.shape[0]} segments (8 receivers)",
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # No single PyTorch call computes an any-hit test.
+    }
+    print(
+        f"phase 17 diffraction map: order 1 + diffraction, tx=1 rx={num_rx} triangles={city.mesh.num_triangles}"
+        f" edges={num_edges} non_manifold_edges={non_manifold} (warned: {bool(warned)})"
+        f" diffraction_paths={diff_paths.mask.numel()} valid={valid} segments={num}"
+        f" wall_s={wall:.4f} card_ms={card_ms:.2f} diffraction_paths_per_s={diff_paths.mask.numel() / wall:.4g}"
+        f" peak_gib={peak / 2**30:.3f} split_ms={json.dumps({k: round(v, 3) for k, v in split.items()})}"
+        f" recomposed_err_db={recomposed_err:.3g} counts={json.dumps(counts)}"
+        f" lit={lit} (order 1 alone: {lit_specular}) diffraction_power_share={diff_power / (spec_power + diff_power):.4g}"
+        f" coherent_total_over_specular={float(power.double().sum() / specular_map.double().sum()):.4g}",
+        flush=True,
+    )
+    print(
+        f"phase 17 gradient: d(total power)/d(TX) at full width wall_s={grad_wall:.4f}"
+        f" peak_gib={grad_peak / 2**30:.3f} grad={grad.tolist()};"
+        f" canyon along the gradient: autograd {slope:.6g} central difference (h={FD_STEP} m) {fd:.6g}"
+        f" gap {fd_gap:.3%} (gate 2%)",
+        flush=True,
+    )
+    print(
+        f"phase 17 checks: edges on the card = on the CPU; anyhit.cu vs plain on {o8.shape[0]} segments"
+        f" (8 receivers): mismatches=0 blocked={int(got.sum())}; 8-receiver map vs plain run"
+        f" max_err_db={map_err:.3g} (gate 0.01); fresnel on 1,000,000 points of [-10, 10]:"
+        f" max_abs_err={fresnel_err:.3g} (gate 1e-6) grad_err={fresnel_grad_err:.3g} (gate 1e-5)",
+        flush=True,
+    )
+    print(
+        f"phase 17 anyhit at the path's shape: rays={num} live={live} blocked={blocked}"
+        f" triangles={tv.shape[0]} kernel_only_ms={kernel_ms:.4f} wrapper_ms={ms:.4f}"
+        f" on_path_ms={on_path_ms:.4f} plain_ms={plain_ms:.3f} (on {o8.shape[0]} segments)"
+        f" bound_ms={bound_ms:.5f} ({bound_by})",
+        flush=True,
+    )
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         msg = "chip_smoke.py needs a CUDA device, and none is visible."
@@ -1824,6 +2111,7 @@ def main() -> None:
         **check_trace("(g) hybrid order-2 chunk", city, hybrid["chunk2"], 2, want_valid=True),
     }
     patterns = run_patterns(city, kernels, runs, coverage_run, maps)
+    run_diffraction(city, kernels, materials)
 
     order2 = main_candidates[: 32 * 4096]
     profile("coverage order 2, 32 chunks", lambda: coverage_run(city, 2, order2), ("trace_kernel",))

@@ -216,7 +216,10 @@ def power_map(
     thickness: torch.Tensor | None = None,
     coherent: bool = True,
     solver="exhaustive",
+    with_diffraction: bool = False,
+    with_scattering: bool = False,
     tx_pattern=None,
+    mixed_signatures=None,
     **solver_kwargs,
 ) -> torch.Tensor:
     """Coverage map: received power for every TX/RX pair, ``[*tx_batch, *rx_batch]``.
@@ -225,7 +228,13 @@ def power_map(
     ``solver_kwargs`` go to :meth:`Scene.trace_paths
     <differt_tpu_torch.geometry.Scene.trace_paths>` (``"exhaustive"``,
     ``"hybrid"`` or a tracer instance); ``tx_pattern`` to
-    :func:`complex_amplitudes`.
+    :func:`complex_amplitudes`. With ``with_diffraction``, the first-order
+    UTD edge-diffraction paths of
+    :class:`~differt_tpu_torch.rt.DiffractionPathTracer` add their
+    amplitudes (``coherent``) or powers to the specular paths' per pixel;
+    their wedges are perfectly conducting. Diffuse scattering
+    (``with_scattering``) and mixed reflection/diffraction chains
+    (``mixed_signatures``) are not ported yet and raise.
 
     >>> import torch
     >>> from differt_tpu_torch.geometry import Mesh, Scene
@@ -235,21 +244,67 @@ def power_map(
     >>> tuple(power.shape), bool((power > 0).all())
     ((1, 2, 4), True)
     """
+    if with_scattering:
+        msg = "power_map(with_scattering=True) is not ported yet (ROADMAP A10.5, scattering)."
+        raise NotImplementedError(msg)
+    if mixed_signatures:
+        msg = "power_map(mixed_signatures=...) is not ported yet (ROADMAP A10.6, mixed paths)."
+        raise NotImplementedError(msg)
     frequency = torch.as_tensor(frequency, dtype=torch.float32, device=scene.mesh.device)
     eta_r, conductivity, thickness = _resolve_materials(
         scene, frequency, eta_r, conductivity, thickness
     )
     paths = scene.trace_paths(order=order, solver=solver, **solver_kwargs)
-    return received_power(
-        paths,
+    if not with_diffraction:
+        return received_power(
+            paths,
+            scene,
+            frequency,
+            eta_r=eta_r,
+            conductivity=conductivity,
+            thickness=thickness,
+            coherent=coherent,
+            tx_pattern=tx_pattern,
+        )
+
+    from .rt._diffraction import _trace_diffraction, diffraction_amplitudes
+
+    num_tx = max(math.prod(scene.transmitters.shape[:-1]), 1)
+    num_rx = max(math.prod(scene.receivers.shape[:-1]), 1)
+    a_spec = complex_amplitudes(
+        paths.reshape(num_tx, num_rx, -1),
         scene,
         frequency,
         eta_r=eta_r,
         conductivity=conductivity,
         thickness=thickness,
-        coherent=coherent,
         tx_pattern=tx_pattern,
     )
+    # The edges are extracted once, for the tracer and the amplitudes
+    # (scene.trace_diffraction_paths() would extract them again).
+    mesh = scene.mesh if scene.mesh.assume_unique_vertices else scene.mesh.dedup_vertices()
+    edges, adjacent, wedge_n = mesh._diffraction_edges_info()
+    diff_paths = _trace_diffraction(
+        mesh,
+        scene.transmitters.reshape(-1, 3),
+        scene.receivers.reshape(-1, 3),
+        edges,
+        hit_tol=None,
+        min_len=None,
+    )
+    a_diff = diffraction_amplitudes(
+        diff_paths.reshape(num_tx, num_rx, -1),
+        scene,
+        frequency,
+        edges=edges,
+        adjacent_triangles=adjacent,
+        wedge_n=wedge_n,
+    )
+    if coherent:
+        power = torch.abs(a_spec.sum(dim=-1) + a_diff.sum(dim=-1)) ** 2 / z_0
+    else:
+        power = (torch.abs(a_spec) ** 2).sum(dim=-1) / z_0 + (torch.abs(a_diff) ** 2).sum(dim=-1) / z_0
+    return power.reshape(*scene.transmitters.shape[:-1], *scene.receivers.shape[:-1])
 
 
 def _coverage_tile(

@@ -1,4 +1,4 @@
-"""Electromagnetics: constants, Fresnel coefficients, materials, antennas, polarization frames and delays."""
+"""Electromagnetics: constants, Fresnel coefficients, materials, antennas, polarization frames, delays and UTD diffraction."""
 
 from ._antenna import (
     Antenna,
@@ -20,6 +20,7 @@ from ._fresnel import (
 )
 from ._interaction_type import InteractionType
 from ._material import Material, MaterialsDict, materials
+from ._utd import F, L_i, diffraction_coefficients, fresnel
 from ._utils import (
     fspl,
     length_to_delay,
@@ -32,6 +33,8 @@ from ._utils import (
 )
 
 __all__ = (
+    "F",
+    "L_i",
     "Antenna",
     "BaseAntenna",
     "Dipole",
@@ -43,7 +46,9 @@ __all__ = (
     "ShortDipole",
     "ShortDipolePattern",
     "c",
+    "diffraction_coefficients",
     "epsilon_0",
+    "fresnel",
     "fresnel_coefficients",
     "fspl",
     "length_to_delay",

@@ -159,6 +159,17 @@ class Scene:
         traced = (batched(paths) for paths in result)
         return SizedIterator(traced, size=len(result)) if isinstance(result, SizedIterator) else traced
 
+    def trace_diffraction_paths(self, **solver_kwargs):
+        """First-order diffraction paths over every diffraction edge of the mesh.
+
+        See :class:`~differt_tpu_torch.rt.DiffractionPathTracer` (built with
+        ``solver_kwargs``: ``hit_tol``, ``min_len``); batch shape
+        ``[num_tx, num_rx, num_edges]``.
+        """
+        from ..rt._diffraction import DiffractionPathTracer
+
+        return DiffractionPathTracer(**solver_kwargs).trace_paths(self)
+
     def compute_paths(self, order: int | None = None, *, method="exhaustive", **kwargs):
         """Deprecated: :meth:`trace_paths` (``method`` "exhaustive" or "hybrid") or :meth:`launch_paths` ("sbr")."""
         warnings.warn(

@@ -6,8 +6,8 @@ the fields of a JAX ``Scene``) becomes the port's objects on a device, so
 both packages can trace the same geometry.
 
 Mesh keys: ``vertices``, ``triangles``, ``face_materials``,
-``material_names``, ``mask``, ``object_bounds``, ``assume_quads``; the
-optional ones may be missing or None. Scene keys: ``transmitters``,
+``material_names``, ``mask``, ``object_bounds``, ``assume_quads``,
+``assume_unique_vertices``; the optional ones may be missing or None. Scene keys: ``transmitters``,
 ``receivers`` and ``mesh`` (a mesh dict). A placement problem (the inputs
 of ``parallel.streamed_placement_step`` beside the scene) has the keys
 ``tx``, ``eta_r``, ``conductivity``, and optionally ``thickness``,
@@ -42,6 +42,7 @@ def mesh_from_numpy(fields: dict, *, device: torch.device | str | None = None) -
         material_names=tuple(str(n) for n in fields.get("material_names") or ()),
         object_bounds=_tensor(fields.get("object_bounds"), torch.int64, device),
         assume_quads=bool(fields.get("assume_quads", False)),
+        assume_unique_vertices=bool(fields.get("assume_unique_vertices", False)),
         mask=_tensor(fields.get("mask"), torch.bool, device),
     )
 
@@ -71,6 +72,7 @@ def mesh_to_numpy(mesh: Mesh) -> dict:
         "mask": as_np(mesh.mask),
         "object_bounds": as_np(mesh.object_bounds),
         "assume_quads": mesh.assume_quads,
+        "assume_unique_vertices": mesh.assume_unique_vertices,
     }
 
 

@@ -130,6 +130,28 @@ def sp_directions3(k_i, k_r, normal):
     return (e_i_s, e_i_p), (e_i_s, e_r_p)
 
 
+def unpack_vertices3(vertices: torch.Tensor, valid: torch.Tensor) -> list[list[torch.Tensor]]:
+    """Unpack ``[*batch, L, 3]`` path vertices into ``L`` component tuples of ``[*batch]`` tensors.
+
+    Invalid paths (``valid`` False) are replaced by a straight dummy path
+    (point ``l`` at ``x = l``), so that normalizations and their gradients
+    stay finite; callers weight them by 0.
+
+    >>> import torch
+    >>> pts = unpack_vertices3(torch.ones((2, 3, 3)), torch.tensor([True, False]))
+    >>> [p[0].tolist() for p in pts]
+    [[1.0, 0.0], [1.0, 1.0], [1.0, 2.0]]
+    """
+    v_soa = torch.movedim(vertices, (-2, -1), (0, 1))
+    return [
+        [
+            torch.where(valid, v_soa[l, axis], float(l) if axis == 0 else 0.0)
+            for axis in range(3)
+        ]
+        for l in range(vertices.shape[-2])
+    ]
+
+
 def gather_columns(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Row-gather from a ``[T, C]`` table, returned as ``[C, *idx.shape]``.
 

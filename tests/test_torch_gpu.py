@@ -557,3 +557,69 @@ def test_hybrid_order_1_uses_the_kernels_only() -> None:
     assert tuple(b - a for a, b in zip(counts, now)) == (2, 0, chunks, 0, 0, 0, 1, 1, 0)
     exhaustive = coverage.power_map_chunked(scene, 2.4e9, order=1, coherent=False)
     assert bool((power > 0).any()) and bool((power <= exhaustive * (1 + 1e-5)).all())
+
+
+def _canyon_diffraction_scene(device) -> Scene:
+    rx = torch.tensor(
+        [[x, y, 1.5] for x in (-20.0, 0.0, 20.0, 35.0) for y in (-3.0, 3.0)], device=device
+    )
+    return Scene(
+        transmitters=torch.tensor([[-30.0, 0.0, 20.0]], device=device),
+        receivers=rx,
+        mesh=scenes.street_canyon_scene(device=device).mesh,
+    )
+
+
+def test_anyhit_kernel_on_diffraction_segments() -> None:
+    from differt_tpu_torch.ops._dispatch import anyhit_segments
+    from differt_tpu_torch.rt._diffraction import keller_paths
+
+    device = cuda_or_skip()
+    scene = _canyon_diffraction_scene(device)
+    mesh = scene.mesh.dedup_vertices()
+    edges, _, _ = mesh._diffraction_edges_info()
+    paths, _ = keller_paths(scene.transmitters, scene.receivers, edges)
+    o, d, th = anyhit_segments(paths[..., :-1, :], paths[..., 1:, :] - paths[..., :-1, :])
+    tv = mesh.triangle_vertices.contiguous()
+    want = _rt.ray_intersect_any_triangle_reference(o, d, tv, None, hit_threshold=th)
+    got = _rt.ray_intersect_any_triangle_cuda(o, d, None, hit_threshold=th, bvh=mesh.bvh)
+    assert o.shape[0] == 2 * 8 * edges.shape[0]
+    assert torch.equal(got, want) and bool(got.any()) and not bool(got.all())
+
+
+def test_fresnel_integrals_on_the_card() -> None:
+    from scipy import special
+
+    from differt_tpu_torch.em import fresnel
+
+    device = cuda_or_skip()
+    x = torch.linspace(-10.0, 10.0, 1_000_001, device=device, requires_grad=True)
+    s, c = fresnel(x)
+    s_ref, c_ref = special.fresnel(x.detach().double().cpu().numpy())
+    assert np.abs(s.detach().cpu().numpy() - s_ref).max() <= 1e-6
+    assert np.abs(c.detach().cpu().numpy() - c_ref).max() <= 1e-6
+    g_s, = torch.autograd.grad(s.sum(), x, retain_graph=True)
+    g_c, = torch.autograd.grad(c.sum(), x)
+    arg = 0.5 * np.pi * x.detach().double().cpu().numpy() ** 2
+    assert np.abs(g_s.cpu().numpy() - np.sin(arg)).max() <= 1e-5
+    assert np.abs(g_c.cpu().numpy() - np.cos(arg)).max() <= 1e-5
+
+
+def test_diffraction_map_kernel_against_plain(torch_backend) -> None:
+    from differt_tpu_torch import coverage
+
+    device = cuda_or_skip()
+    scene = _canyon_diffraction_scene(device)
+    run = dataclasses.replace(scene, mesh=dataclasses.replace(scene.mesh))
+    counts = (_rt.LAUNCHES, _rt.REFERENCE_CALLS, _trace.LAUNCHES, _trace.REFERENCE_CALLS, _bvh.BUILDS)
+    power = coverage.power_map(run, 2.4e9, order=1, with_diffraction=True)
+    torch.cuda.synchronize()
+    now = (_rt.LAUNCHES, _rt.REFERENCE_CALLS, _trace.LAUNCHES, _trace.REFERENCE_CALLS, _bvh.BUILDS)
+    # One any-hit launch (the blockage), one trace launch (order 1), one BVH.
+    assert tuple(b - a for a, b in zip(counts, now)) == (1, 0, 1, 0, 1)
+    torch_backend()
+    plain = coverage.power_map(scene, 2.4e9, order=1, with_diffraction=True)
+    assert bool(torch.isfinite(power).all()) and bool((power > 0).all())
+    lit = plain >= plain.max() * 1e-4
+    err = (10.0 * torch.log10(power[lit].double() / plain[lit].double())).abs().max()
+    assert float(err) <= 0.01

@@ -24,6 +24,8 @@ assert power.shape == (1, 8, 8), power.shape
 assert bool(torch.isfinite(power).all()) and float(power.max()) > 0.0
 paths = scene.launch_paths(order=2, num_rays=2000, max_dist=4.0)
 assert paths.masks.shape == (1, 8, 8, 2000, 3) and bool(paths.masks.any())
+diffraction = power_map(scene, 2.4e9, order=1, with_diffraction=True)
+assert diffraction.shape == (1, 8, 8) and bool(torch.isfinite(diffraction).all()) and bool((diffraction != power).any())
 hybrid = power_map(scene, 2.4e9, order=1, solver="hybrid", num_rays=2000)
 assert hybrid.shape == (1, 8, 8) and bool(torch.isfinite(hybrid).all()) and float(hybrid.max()) > 0.0
 pattern = HWDipolePattern(2.4e9, direction=(0.0, 0.0, 1.0), center=scene.transmitters[0])

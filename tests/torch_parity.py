@@ -12,6 +12,26 @@ import torch
 from differt_tpu_torch.interop import antenna_from_numpy, placement_from_numpy, scene_from_numpy
 
 F32_EPS = float(np.finfo(np.float32).eps)
+
+
+def _warm_cpu_math() -> None:
+    """Run each float32 transcendental the port uses once, over many threads.
+
+    PyTorch's CPU builds can compute one intra-op thread's share of the
+    first multi-threaded call of ``sin``, ``cos``, ``tan``, ``exp``,
+    ``sqrt`` or ``arccos`` in a process less accurately (seen: ``sin`` 1.5e-4
+    off on 25,000 of 200,001 elements, in 2 to 4 of 10 fresh processes;
+    never with one thread, never on a second call). Tests compare at 1e-6,
+    so each function takes its first call here, when a test module imports
+    this one.
+    """
+    x = torch.linspace(0.01, 0.99, 1 << 20)
+    for fn in (torch.sin, torch.cos, torch.tan, torch.exp, torch.log, torch.sqrt, torch.arccos):
+        fn(x)
+    torch.atan2(x, x)
+
+
+_warm_cpu_math()
 EPSILON = 10.0 * F32_EPS
 HIT_TOL = 100.0 * F32_EPS
 
@@ -34,6 +54,7 @@ def jax_scene_fields(scene) -> dict:
             "mask": _np(mesh.mask),
             "object_bounds": _np(mesh.object_bounds),
             "assume_quads": mesh.assume_quads,
+            "assume_unique_vertices": mesh.assume_unique_vertices,
         },
     }
 
