@@ -44,6 +44,16 @@ version, and drives three paths, each counted from zero:
   gradient, the canyon's central difference, the kernel against its plain
   version on 8 receivers' segments and maps, and the Fresnel integrals
   against SciPy;
+- mixed chains (phase 18): ``power_map(order=1, with_diffraction=True,
+  mixed_signatures=[(R, D), (D, R)])`` on ``urban_scene(4, 4)`` (578
+  triangles, 576 edges) with the 64 street crossings: 21 M Fermat paths a
+  signature, each signature's segments in one any-hit launch, held against
+  the port's CPU run and the plain versions on 8 receivers; the TX gradient
+  on 16 receivers and the knife edge's central difference;
+- diffuse scattering (phase 19): ``power_map(order=1, with_scattering=True)``
+  on the coverage path's scene, both segments of its 2.65 M paths in one
+  any-hit launch, the TX gradient, the plain versions on 8 receivers, and
+  ``S = 0`` against the plain map;
 
 and checks that each path call went through its kernels, never through
 their plain versions, and built its mesh's BVH once. Then it profiles
@@ -100,6 +110,9 @@ DIFF_CHECKED_RX = 8  # receivers whose diffraction segments and map phase 17 hol
 # costs the central difference 1-2% (its h^2 term), 3 mm about 0.2%, and
 # float32's noise stays below 0.5% there (a CPU run of the same check).
 FD_STEP = 0.003
+MIXED_SIGNATURES = ((0, 1), (1, 0))  # (R, D) and (D, R) (phase 18)
+MIXED_CHECKED_RX = 8  # receivers whose mixed paths phase 18 holds against the CPU and the plain versions
+MIXED_GRAD_RX = 16  # receivers of phase 18's gradient
 
 
 def cuda_ms(fn, repeats: int) -> float:
@@ -1804,6 +1817,469 @@ def run_diffraction(city, kernels: dict, materials: dict) -> None:
     )
 
 
+# -- Mixed chains and diffuse scattering -----------------------------------------
+
+
+def knife_edge_scene(device):
+    """``examples/propagation_mechanisms.py``'s knife edge: a ground plane and a 2 x 6 x 3 m box, concrete, the RX above the roof's level."""
+    from differt_tpu_torch.geometry import Mesh, Scene
+
+    ground = Mesh.plane(torch.tensor([0.0, 0.0, 0.0]), normal=torch.tensor([0.0, 0.0, 1.0]), side_length=40.0, device=device)
+    box = Mesh.box(2.0, 6.0, 3.0, with_top=True, device=device).translate(torch.tensor([0.0, 0.0, 1.5], device=device))
+    mesh = (ground + box).dedup_vertices().set_materials("Concrete")
+    return Scene(
+        transmitters=torch.tensor([[-8.0, 0.0, 1.6]], device=device), receivers=torch.tensor([[8.0, 0.0, 5.0]], device=device), mesh=mesh
+    )
+
+
+def knife_fd_check(device, materials: dict) -> tuple[float, float, float]:
+    """The knife edge's (R, D) map (dielectric faces) and its TX gradient against a
+    central difference along it: ``(directional derivative, difference, relative gap)``."""
+    from differt_tpu_torch.em import z_0
+    from differt_tpu_torch.rt import MixedPathTracer, mixed_amplitudes
+
+    knife = knife_edge_scene(device)
+    info = dict(zip(("edges", "adjacent_triangles", "wedge_n"), knife.mesh._diffraction_edges_info()))
+
+    def total(tx):
+        scene = dataclasses.replace(knife, transmitters=tx)
+        paths = MixedPathTracer().trace_paths(scene, (0, 1))
+        a = mixed_amplitudes(paths, scene, FREQUENCY, **info, **materials)
+        return (torch.abs(a.sum(-1)) ** 2 / z_0).double().sum()
+
+    tx = knife.transmitters.clone().requires_grad_()
+    (grad,) = torch.autograd.grad(total(tx), tx)
+    direction = grad / grad.norm()
+    with torch.no_grad():
+        fd = float((total(tx + FD_STEP * direction) - total(tx - FD_STEP * direction)) / (2.0 * FD_STEP))
+    slope = float((grad * direction).sum())
+    return slope, fd, abs(slope - fd) / abs(fd)
+
+
+def cpu_copy(scene):
+    """The scene with every tensor on the CPU."""
+    mesh = scene.mesh
+    return dataclasses.replace(
+        scene,
+        transmitters=scene.transmitters.cpu(),
+        receivers=scene.receivers.cpu(),
+        mesh=dataclasses.replace(
+            mesh,
+            **{
+                f.name: getattr(mesh, f.name).cpu()
+                for f in dataclasses.fields(mesh)
+                if f.init and isinstance(getattr(mesh, f.name), torch.Tensor)
+            },
+        ),
+    )
+
+
+def anyhit_row(label: str, o, d, th, mesh, counts: dict, plain: dict, on_path_ms: float) -> dict:
+    """``anyhit.cu`` at a path's shape: alone, in its wrapper, against its bound; one row of the kernels line."""
+    from differt_tpu_torch.ops import _rt
+
+    bvh = mesh.bvh
+    tv = mesh.triangle_vertices.contiguous()
+    num = o.shape[0]
+    out = torch.empty(num, dtype=torch.bool, device=o.device)
+    kernel_ms = cuda_ms(lambda: _rt.launch_anyhit(o, d, th, bvh, TRACE_KW["epsilon"], out), 3)
+    ms = cuda_ms(lambda: _rt.ray_intersect_any_triangle_cuda(o, d, None, hit_threshold=th, bvh=bvh), 3)
+    live = int((th >= 0).sum())
+    bound_ms, bound_by = bound(num * 29 + mesh_bytes(tv, None), live * MT_FLOPS)
+    print(
+        f"{label} anyhit at the path's shape: rays={num} live={live} blocked={int(out.sum())}"
+        f" triangles={tv.shape[0]} kernel_only_ms={kernel_ms:.4f} wrapper_ms={ms:.4f}"
+        f" on_path_ms={on_path_ms:.4f} plain_ms={plain['ms']:.3f} (on {plain['segments']} segments)"
+        f" bound_ms={bound_ms:.5f} ({bound_by}) ns_per_segment={kernel_ms * 1e6 / num:.3f}",
+        flush=True,
+    )
+    return {
+        "shape": f"{num} segments x {tv.shape[0]} triangles",
+        "launches": counts["anyhit"],
+        "max_abs_err": 0.0,
+        "kernel_only_ms": kernel_ms,
+        "ms": ms,
+        "on_path_ms": on_path_ms,
+        "plain_ms": plain["ms"],
+        "plain_shape": f"{plain['segments']} segments (8 receivers)",
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # No single PyTorch call computes an any-hit test.
+    }
+
+
+def check_anyhit_bits(label: str, paths, mesh) -> dict:
+    """``anyhit.cu`` against its plain version, bit for bit, on ``paths``' segments (made by the dispatch's own helper)."""
+    from differt_tpu_torch.ops import _rt
+    from differt_tpu_torch.ops._dispatch import anyhit_segments
+
+    v = paths.vertices
+    o, d, th = anyhit_segments(v[..., :-1, :], v[..., 1:, :] - v[..., :-1, :])
+    tv = mesh.triangle_vertices.contiguous()
+    got = _rt.ray_intersect_any_triangle_cuda(o, d, None, hit_threshold=th, bvh=mesh.bvh)
+    start = time.perf_counter()
+    want = _rt.ray_intersect_any_triangle_reference(o, d, tv, None, hit_threshold=th)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - start) * 1e3
+    if mismatches := int((got != want).sum()):
+        msg = f"{label}: the any-hit kernel disagrees with its plain version on {mismatches} segments"
+        raise AssertionError(msg)
+    return {"ms": plain_ms, "segments": o.shape[0], "blocked": int(got.sum())}
+
+
+def run_mixed(device, kernels: dict, materials: dict) -> None:
+    """Phase 18: ``power_map(order=1, with_diffraction=True, mixed_signatures=[(R, D), (D, R)])``
+    on ``urban_scene(4, 4)`` (578 triangles, 576 edges), the coverage TX and
+    the 64 street crossings, counted: ``trace.cu`` for the specular half,
+    ``anyhit.cu`` once for the diffraction half and once per signature (every
+    segment of its 21 M Fermat paths in one launch), one BVH build. Then its
+    parts timed apart, the 8 receivers' mixed paths on the card against the
+    port's CPU run, the kernel against its plain version on their segments,
+    their map against the plain run, the TX gradient on 16 receivers, and the
+    knife edge's central difference."""
+    from differt_tpu_torch import coverage, ops, scenes
+    from differt_tpu_torch.em import z_0
+    from differt_tpu_torch.geometry import Scene
+    from differt_tpu_torch.ops._dispatch import anyhit_segments
+    from differt_tpu_torch.rt._diffraction import _trace_diffraction, diffraction_amplitudes
+    from differt_tpu_torch.rt._mixed import (
+        _blocked_paths,
+        _fermat_paths,
+        _mixed_checks,
+        _trace_mixed,
+        generate_mixed_path_candidates,
+        mixed_amplitudes,
+    )
+
+    mesh = scenes.urban_scene(4, 4, device=device).mesh
+    if mesh.num_triangles != 578:
+        msg = f"urban_scene(4, 4) has {mesh.num_triangles} triangles, expected 578"
+        raise AssertionError(msg)
+    rx = street_receivers(device, nx=8, ny=8).reshape(-1, 3)
+    city = Scene(transmitters=torch.tensor([TX], device=device), receivers=rx, mesh=mesh)
+    num_rx = rx.shape[0]
+    tx = city.transmitters
+
+    def mixed_map(scene):
+        return coverage.power_map(
+            scene, FREQUENCY, order=1, with_diffraction=True, mixed_signatures=MIXED_SIGNATURES, **materials
+        )
+
+    mixed_map(fresh(city))  # warm-up
+    want = {"anyhit": 1 + len(MIXED_SIGNATURES), "trace": 1, "bvh_builds": 1}
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    power, wall, card_ms, counts = counted_call("mixed map", lambda: mixed_map(fresh(city)), want)
+    peak = torch.cuda.max_memory_allocated() - base
+    if not torch.isfinite(power).all():
+        msg = "the mixed map is not finite"
+        raise AssertionError(msg)
+
+    # The same map in its parts, timed apart (CUDA events), and recomposed.
+    scene = fresh(city)
+    frequency = torch.tensor(FREQUENCY, device=device)
+    eta_r, conductivity, thickness = coverage._resolve_materials(
+        scene, frequency, materials["eta_r"], materials["conductivity"], None
+    )
+    marks = []
+
+    def mark(name):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        marks.append((name, event))
+
+    mark("start")
+    paths = scene.trace_paths(order=1)
+    a_spec = coverage.complex_amplitudes(
+        paths.reshape(1, num_rx, -1), scene, frequency, eta_r=eta_r, conductivity=conductivity, thickness=thickness
+    )
+    mark("specular_half")
+    dedup = scene.mesh.dedup_vertices()
+    edges, adjacent, wedge_n = dedup._diffraction_edges_info()
+    mark("edges")
+    diff_paths = _trace_diffraction(dedup, tx, rx, edges, hit_tol=None, min_len=None)
+    a_diff = diffraction_amplitudes(
+        diff_paths.reshape(1, num_rx, -1), scene, frequency, edges=edges, adjacent_triangles=adjacent, wedge_n=wedge_n
+    )
+    mark("diffraction")
+    total = a_spec.sum(-1) + a_diff.sum(-1)
+    per_signature = {}
+    for signature in MIXED_SIGNATURES:
+        tag = "".join("RD"[t] for t in signature)
+        slots = tuple(dedup.num_triangles if t == 0 else edges.shape[0] for t in signature)
+        candidates = generate_mixed_path_candidates(slots, device=device)
+        mark(f"{tag}_decode")
+        full_paths = _fermat_paths(dedup, tx, rx, edges, candidates, signature, steps=20)
+        mark(f"{tag}_fermat")
+        mask = _mixed_checks(dedup, full_paths, edges, candidates, signature, epsilon=None, angle_tol=1e-2)
+        mark(f"{tag}_checks")
+        mixed_paths = _blocked_paths(dedup, full_paths, mask, candidates, signature, hit_tol=None, min_len=None)
+        mark(f"{tag}_blockage")
+        a_mixed = mixed_amplitudes(
+            mixed_paths, scene, frequency, edges=edges, adjacent_triangles=adjacent, wedge_n=wedge_n,
+            eta_r=eta_r, conductivity=conductivity, thickness=thickness, types=signature,
+        )
+        mark(f"{tag}_amplitudes")
+        total = total + a_mixed.sum(-1)
+        per_signature[tag] = {
+            "candidates": candidates.shape[0],
+            "fermat_solves": mixed_paths.mask.numel(),
+            "valid": int(mixed_paths.mask.sum()),
+            "power": float((torch.abs(a_mixed) ** 2).sum()),
+        }
+    torch.cuda.synchronize()
+    split = {name: marks[i - 1][1].elapsed_time(event) for i, (name, event) in enumerate(marks) if i}
+    recomposed_err = db_error((torch.abs(total) ** 2 / z_0).reshape(power.shape), power)
+    fermat_ms = sum(v for k, v in split.items() if k.endswith("_fermat"))
+    solves = sum(v["fermat_solves"] for v in per_signature.values())
+    specular_map = (torch.abs(a_spec.sum(-1)) ** 2 / z_0).reshape(power.shape)
+    lit, lit_specular = int((power > 0).sum()), int((specular_map > 0).sum())
+    if not (recomposed_err <= 1e-4 and all(v["valid"] for v in per_signature.values())):
+        msg = f"the mixed map's parts recompose it within {recomposed_err} dB; valid paths {per_signature}"
+        raise AssertionError(msg)
+
+    # 8 receivers: the card's mixed paths against the port's CPU run, on the
+    # candidates valid for one of them and every 64th other one.
+    rx8 = rx[:: num_rx // MIXED_CHECKED_RX]
+    cpu_dedup = cpu_copy(city).mesh.dedup_vertices()
+    cpu_edges = cpu_dedup._diffraction_edges_info()[0]
+    vs_cpu, plain_rows = {}, {}
+    trace_kw = {"epsilon": None, "hit_tol": None, "min_len": None, "angle_tol": 1e-2, "steps": 20}
+    for signature in MIXED_SIGNATURES:
+        tag = "".join("RD"[t] for t in signature)
+        slots = tuple(dedup.num_triangles if t == 0 else edges.shape[0] for t in signature)
+        candidates = generate_mixed_path_candidates(slots, device=device)
+        card8 = _trace_mixed(dedup, tx, rx8, edges, candidates, signature, **trace_kw)
+        plain_rows[tag] = check_anyhit_bits(f"phase 18 {tag}", card8, dedup)
+        pick = card8.mask.any(dim=1)[0] | (torch.arange(candidates.shape[0], device=device) % 64 == 0)
+        subset = torch.nonzero(pick).squeeze(-1)
+        cpu8 = _trace_mixed(cpu_dedup, tx.cpu(), rx8.cpu(), cpu_edges, candidates[subset].cpu(), signature, **trace_kw)
+        card_mask, card_v = card8.mask[..., subset].cpu(), card8.vertices[..., subset, :, :].cpu()
+        apart = (card_v - cpu8.vertices).abs().amax(dim=(-1, -2)) > 1e-4
+        mismatch = card_mask != cpu8.mask
+        both = card_mask & cpu8.mask
+        lengths = [(v[..., 1:, :] - v[..., :-1, :]).double().norm(dim=-1).sum(-1)[both] for v in (card_v, cpu8.vertices)]
+        length_gap = float((lengths[0] - lengths[1]).abs().max() / lengths[1].max()) if both.any() else 0.0
+        vs_cpu[tag] = {
+            "paths": cpu8.mask.numel(),
+            "valid_card": int(card_mask.sum()),
+            "valid_cpu": int(cpu8.mask.sum()),
+            "mismatches": int(mismatch.sum()),
+            "mismatches_where_points_agree": int((mismatch & ~apart).sum()),
+            "points_apart": int(apart.sum()),
+            "max_vertex_err_valid": float((card_v - cpu8.vertices).abs().amax(dim=(-1, -2))[both].max()) if both.any() else 0.0,
+            "max_rel_length_gap_valid": length_gap,
+        }
+        if vs_cpu[tag]["mismatches_where_points_agree"] or not length_gap <= 1e-6:
+            msg = f"phase 18 {tag}: the card's mixed paths differ from the CPU's: {vs_cpu[tag]}"
+            raise AssertionError(msg)
+    scene8 = dataclasses.replace(city, receivers=rx8)
+    kernel_map = mixed_map(fresh(scene8))
+    ops.set_backend("torch")
+    try:
+        plain_map = mixed_map(fresh(scene8))
+    finally:
+        ops.set_backend("auto")
+    map_err = db_error(kernel_map, plain_map)
+    if not map_err <= 0.01:
+        msg = f"the 8 receivers' mixed map differs from the plain run by {map_err} dB"
+        raise AssertionError(msg)
+
+    # The TX gradient on 16 receivers, then the knife edge's central difference.
+    scene16 = dataclasses.replace(city, receivers=rx[:: num_rx // MIXED_GRAD_RX])
+    tx_grad = tx.clone().requires_grad_()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+
+    def gradient():
+        return torch.autograd.grad(mixed_map(dataclasses.replace(fresh(scene16), transmitters=tx_grad)).sum(), tx_grad)[0]
+
+    grad, grad_wall, _, _ = counted_call("mixed map gradient", gradient, want)
+    grad_peak = torch.cuda.max_memory_allocated() - base
+    if not (torch.isfinite(grad).all() and grad.abs().max() > 0):
+        msg = f"the mixed map's TX gradient is {grad.tolist()}"
+        raise AssertionError(msg)
+    slope, fd, fd_gap = knife_fd_check(device, materials)
+    if not fd_gap <= 0.02:
+        msg = f"the knife edge's (R, D) TX gradient along itself is {slope}, its central difference {fd} ({fd_gap:.3%} apart)"
+        raise AssertionError(msg)
+
+    # anyhit.cu at the path's shape: the (R, D) signature's segments, all 64 receivers.
+    signature = MIXED_SIGNATURES[0]
+    slots = tuple(dedup.num_triangles if t == 0 else edges.shape[0] for t in signature)
+    candidates = generate_mixed_path_candidates(slots, device=device)
+    full_paths = _fermat_paths(dedup, tx, rx, edges, candidates, signature, steps=20)
+    o, d, th = anyhit_segments(full_paths[..., :-1, :], full_paths[..., 1:, :] - full_paths[..., :-1, :])
+    on_path = profile(
+        "mixed map (order 1 + diffraction + (R, D), (D, R))",
+        lambda: mixed_map(city),
+        ("compact_kernel", "anyhit_kernel", "trace_kernel"),
+    )
+    row = anyhit_row("phase 18", o, d, th, dedup, counts, plain_rows["RD"], on_path.get("anyhit_kernel", (0, float("nan")))[1])
+    kernels["anyhit"]["launches_by_path"]["mixed_map"] = counts["anyhit"]
+    kernels["anyhit"]["launches"] += counts["anyhit"]
+    kernels["trace"]["launches"] += counts["trace"]
+    kernels["trace"]["launches_by_path"]["mixed_map"] = counts["trace"]
+    kernels["anyhit"]["mixed"] = row
+
+    print(
+        f"phase 18 mixed map: order 1 + diffraction + {len(MIXED_SIGNATURES)} signatures, tx=1 rx={num_rx}"
+        f" triangles={mesh.num_triangles} edges={edges.shape[0]} per_signature={json.dumps(per_signature)}"
+        f" wall_s={wall:.4f} card_ms={card_ms:.2f} fermat_solves={solves}"
+        f" fermat_solves_per_s={solves / (fermat_ms / 1e3):.4g} (fermat {fermat_ms:.1f} ms of the split's"
+        f" {sum(split.values()):.1f} ms) peak_gib={peak / 2**30:.3f}"
+        f" split_ms={json.dumps({k: round(v, 3) for k, v in split.items()})} recomposed_err_db={recomposed_err:.3g}"
+        f" counts={json.dumps(counts)} lit={lit} (order 1 alone: {lit_specular})",
+        flush=True,
+    )
+    print(
+        f"phase 18 gradient: d(total power)/d(TX) on {scene16.num_receivers} receivers wall_s={grad_wall:.4f}"
+        f" peak_gib={grad_peak / 2**30:.3f} grad={grad.tolist()}; knife edge (R, D) along the gradient:"
+        f" autograd {slope:.6g} central difference (h={FD_STEP} m) {fd:.6g} gap {fd_gap:.3%} (gate 2%)",
+        flush=True,
+    )
+    print(
+        f"phase 18 checks: 8 receivers, card vs CPU {json.dumps(vs_cpu)}; anyhit.cu vs plain"
+        f" {json.dumps({k: {'segments': v['segments'], 'mismatches': 0, 'blocked': v['blocked']} for k, v in plain_rows.items()})};"
+        f" 8-receiver map vs plain run max_err_db={map_err:.3g} (gate 0.01)",
+        flush=True,
+    )
+
+
+def run_scattering(city, kernels: dict, materials: dict) -> None:
+    """Phase 19: ``power_map(order=1, with_scattering=True)`` on a fresh copy of
+    the coverage scene (20,738 triangles, 128 street receivers), counted:
+    ``trace.cu`` for the specular half, one ``anyhit.cu`` launch for both
+    segments of every scattering path, one BVH build. Then its parts timed
+    apart, a directive ``scattering_amplitudes`` call, its TX gradient, the
+    kernel against its plain version on 8 receivers' segments, their map
+    against the plain run, and ``S = 0`` against the plain map."""
+    from differt_tpu_torch import coverage, ops
+    from differt_tpu_torch.em import z_0
+    from differt_tpu_torch.ops._dispatch import anyhit_segments
+    from differt_tpu_torch.rt import scattering_amplitudes, triangle_sample_points
+    from differt_tpu_torch.rt._scattering import _trace_scattering
+
+    device = city.mesh.device
+    num_rx = city.num_receivers
+    tx = city.transmitters.reshape(-1, 3)
+    rx = city.receivers.reshape(-1, 3)
+
+    def scattering_map(scene, **kw):
+        return coverage.power_map(scene, FREQUENCY, order=1, with_scattering=True, **materials, **kw)
+
+    scattering_map(fresh(city))  # warm-up
+    want = {"anyhit": 1, "trace": 1, "bvh_builds": 1}
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    power, wall, card_ms, counts = counted_call("scattering map", lambda: scattering_map(fresh(city)), want)
+    peak = torch.cuda.max_memory_allocated() - base
+    if not torch.isfinite(power).all():
+        msg = "the scattering map is not finite"
+        raise AssertionError(msg)
+
+    scene = fresh(city)
+    frequency = torch.tensor(FREQUENCY, device=device)
+    eta_r, conductivity, thickness = coverage._resolve_materials(
+        scene, frequency, materials["eta_r"], materials["conductivity"], None
+    )
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    events[0].record()
+    paths = scene.trace_paths(order=1).reshape(1, num_rx, -1)
+    a_spec = coverage.complex_amplitudes(paths, scene, frequency, eta_r=eta_r, conductivity=conductivity, thickness=thickness)
+    events[1].record()
+    triangle_sample_points(scene.mesh.triangle_vertices)
+    events[2].record()
+    scattered = _trace_scattering(scene.mesh, tx, rx, num_samples=1, hit_tol=None, min_len=None)
+    events[3].record()
+    a_scatter = scattering_amplitudes(scattered, scene, frequency, eta_r=eta_r, conductivity=conductivity)
+    events[4].record()
+    torch.cuda.synchronize()
+    split = {
+        name: events[i].elapsed_time(events[i + 1])
+        for i, name in enumerate(("specular_half", "sample_points", "trace_with_blockage", "amplitudes"))
+    }
+    s = 0.3
+    recomposed = (torch.abs(a_spec.sum(-1)) ** 2 * (1.0 - s * s) + (torch.abs(a_scatter) ** 2).sum(-1)) / z_0
+    recomposed_err = db_error(recomposed.reshape(power.shape), power)
+    valid = int(scattered.mask.sum())
+    spec_power, scatter_power = float((torch.abs(a_spec.sum(-1)) ** 2).sum()), float((torch.abs(a_scatter) ** 2).sum())
+    if not (valid and recomposed_err <= 1e-4):
+        msg = f"the scattering map has {valid} valid paths; its parts recompose it within {recomposed_err} dB"
+        raise AssertionError(msg)
+    directive = scattering_amplitudes(
+        _trace_scattering(scene.mesh, tx, rx, num_samples=4, hit_tol=None, min_len=None),
+        scene, frequency, eta_r=eta_r, conductivity=conductivity, alpha_r=4, num_samples=4,
+    )
+    directive_power = float((torch.abs(directive) ** 2).sum())
+    if not (torch.isfinite(torch.view_as_real(directive)).all() and directive_power > 0):
+        msg = f"the directive scattering amplitudes' power is {directive_power}"
+        raise AssertionError(msg)
+
+    tx_grad = city.transmitters.clone().requires_grad_()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+
+    def gradient():
+        return torch.autograd.grad(scattering_map(dataclasses.replace(fresh(city), transmitters=tx_grad)).sum(), tx_grad)[0]
+
+    grad, grad_wall, _, _ = counted_call("scattering map gradient", gradient, want)
+    grad_peak = torch.cuda.max_memory_allocated() - base
+    if not (torch.isfinite(grad).all() and grad.abs().max() > 0):
+        msg = f"the scattering map's TX gradient is {grad.tolist()}"
+        raise AssertionError(msg)
+
+    rx8 = rx[:: num_rx // DIFF_CHECKED_RX]
+    scene8 = dataclasses.replace(city, receivers=rx8)
+    plain = check_anyhit_bits(
+        "phase 19", _trace_scattering(scene.mesh, tx, rx8, num_samples=1, hit_tol=None, min_len=None), scene.mesh
+    )
+    kernel_map = scattering_map(fresh(scene8))
+    ops.set_backend("torch")
+    try:
+        plain_map = scattering_map(fresh(scene8))
+    finally:
+        ops.set_backend("auto")
+    map_err = db_error(kernel_map, plain_map)
+    zero = scattering_map(fresh(city), scattering_coefficient=0.0)
+    order1 = coverage.power_map(fresh(city), FREQUENCY, order=1, **materials)
+    zero_err = float(((zero - order1).abs() / order1.abs().clamp_min(1e-30)).max())
+    if not (map_err <= 0.01 and zero_err <= 1e-6):
+        msg = f"the 8 receivers' scattering map is {map_err} dB off the plain run; S = 0 is {zero_err} off order 1"
+        raise AssertionError(msg)
+
+    v = scattered.vertices
+    o, d, th = anyhit_segments(v[..., :-1, :], v[..., 1:, :] - v[..., :-1, :])
+    on_path = profile(
+        "scattering map (order 1 + scattering)",
+        lambda: scattering_map(city),
+        ("compact_kernel", "anyhit_kernel", "trace_kernel"),
+    )
+    row = anyhit_row("phase 19", o, d, th, scene.mesh, counts, plain, on_path.get("anyhit_kernel", (0, float("nan")))[1])
+    kernels["anyhit"]["launches_by_path"]["scattering_map"] = counts["anyhit"]
+    kernels["anyhit"]["launches"] += counts["anyhit"]
+    kernels["trace"]["launches"] += counts["trace"]
+    kernels["trace"]["launches_by_path"]["scattering_map"] = counts["trace"]
+    kernels["anyhit"]["scattering"] = row
+    print(
+        f"phase 19 scattering map: order 1 + scattering, tx=1 rx={num_rx} triangles={city.mesh.num_triangles}"
+        f" scattering_paths={scattered.mask.numel()} valid={valid} segments={o.shape[0]}"
+        f" wall_s={wall:.4f} card_ms={card_ms:.2f} scattered_paths_per_s={scattered.mask.numel() / wall:.4g}"
+        f" peak_gib={peak / 2**30:.3f} split_ms={json.dumps({k: round(v, 3) for k, v in split.items()})}"
+        f" recomposed_err_db={recomposed_err:.3g} counts={json.dumps(counts)}"
+        f" scattered_power_share={scatter_power / (spec_power + scatter_power):.4g}"
+        f" directive(alpha_r=4, num_samples=4) paths={directive.numel()} power={directive_power:.4g}",
+        flush=True,
+    )
+    print(
+        f"phase 19 gradient: d(total power)/d(TX) at full width wall_s={grad_wall:.4f} peak_gib={grad_peak / 2**30:.3f}"
+        f" grad={grad.tolist()}; checks: anyhit.cu vs plain on {plain['segments']} segments (8 receivers) mismatches=0"
+        f" blocked={plain['blocked']}; 8-receiver map vs plain run max_err_db={map_err:.3g} (gate 0.01);"
+        f" S = 0 vs power_map(order=1) max_rel_err={zero_err:.3g} (gate 1e-6)",
+        flush=True,
+    )
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         msg = "chip_smoke.py needs a CUDA device, and none is visible."
@@ -2112,6 +2588,8 @@ def main() -> None:
     }
     patterns = run_patterns(city, kernels, runs, coverage_run, maps)
     run_diffraction(city, kernels, materials)
+    run_mixed(device, kernels, materials)
+    run_scattering(city, kernels, materials)
 
     order2 = main_candidates[: 32 * 4096]
     profile("coverage order 2, 32 chunks", lambda: coverage_run(city, 2, order2), ("trace_kernel",))

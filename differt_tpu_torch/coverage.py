@@ -218,6 +218,7 @@ def power_map(
     solver="exhaustive",
     with_diffraction: bool = False,
     with_scattering: bool = False,
+    scattering_coefficient=0.3,
     tx_pattern=None,
     mixed_signatures=None,
     **solver_kwargs,
@@ -228,13 +229,26 @@ def power_map(
     ``solver_kwargs`` go to :meth:`Scene.trace_paths
     <differt_tpu_torch.geometry.Scene.trace_paths>` (``"exhaustive"``,
     ``"hybrid"`` or a tracer instance); ``tx_pattern`` to
-    :func:`complex_amplitudes`. With ``with_diffraction``, the first-order
-    UTD edge-diffraction paths of
-    :class:`~differt_tpu_torch.rt.DiffractionPathTracer` add their
-    amplitudes (``coherent``) or powers to the specular paths' per pixel;
-    their wedges are perfectly conducting. Diffuse scattering
-    (``with_scattering``) and mixed reflection/diffraction chains
-    (``mixed_signatures``) are not ported yet and raise.
+    :func:`complex_amplitudes`. Three options add paths to the specular
+    ones:
+
+    - ``with_diffraction``: the first-order UTD edge-diffraction paths of
+      :class:`~differt_tpu_torch.rt.DiffractionPathTracer`, whose wedges are
+      perfectly conducting;
+    - ``mixed_signatures``: a sequence of interaction-type signatures (e.g.
+      ``[(REFLECTION, DIFFRACTION)]``), each traced by
+      :class:`~differt_tpu_torch.rt.MixedPathTracer` (Fermat paths) and
+      weighted by :func:`~differt_tpu_torch.rt.mixed_amplitudes` with the
+      materials; the edges are extracted once for both options;
+    - ``with_scattering``: single-bounce diffuse scattering
+      (:class:`~differt_tpu_torch.rt.ScatteringPathTracer`, Lambertian
+      effective roughness, ``scattering_coefficient`` ``S`` per material or
+      a scalar). The specular amplitudes are scaled by ``sqrt(1 - S^2)``
+      per bounce, and the scattered power adds after the sum, whatever
+      ``coherent`` says: its phases are random in nature.
+
+    The diffraction and mixed amplitudes add to the specular ones per pixel
+    (``coherent``), or their powers do.
 
     >>> import torch
     >>> from differt_tpu_torch.geometry import Mesh, Scene
@@ -244,18 +258,12 @@ def power_map(
     >>> tuple(power.shape), bool((power > 0).all())
     ((1, 2, 4), True)
     """
-    if with_scattering:
-        msg = "power_map(with_scattering=True) is not ported yet (ROADMAP A10.5, scattering)."
-        raise NotImplementedError(msg)
-    if mixed_signatures:
-        msg = "power_map(mixed_signatures=...) is not ported yet (ROADMAP A10.6, mixed paths)."
-        raise NotImplementedError(msg)
     frequency = torch.as_tensor(frequency, dtype=torch.float32, device=scene.mesh.device)
     eta_r, conductivity, thickness = _resolve_materials(
         scene, frequency, eta_r, conductivity, thickness
     )
     paths = scene.trace_paths(order=order, solver=solver, **solver_kwargs)
-    if not with_diffraction:
+    if not with_diffraction and not with_scattering and not mixed_signatures:
         return received_power(
             paths,
             scene,
@@ -267,12 +275,13 @@ def power_map(
             tx_pattern=tx_pattern,
         )
 
-    from .rt._diffraction import _trace_diffraction, diffraction_amplitudes
-
     num_tx = max(math.prod(scene.transmitters.shape[:-1]), 1)
     num_rx = max(math.prod(scene.receivers.shape[:-1]), 1)
+    tx = scene.transmitters.reshape(-1, 3)
+    rx = scene.receivers.reshape(-1, 3)
+    paths = paths.reshape(num_tx, num_rx, -1)
     a_spec = complex_amplitudes(
-        paths.reshape(num_tx, num_rx, -1),
+        paths,
         scene,
         frequency,
         eta_r=eta_r,
@@ -280,30 +289,85 @@ def power_map(
         thickness=thickness,
         tx_pattern=tx_pattern,
     )
-    # The edges are extracted once, for the tracer and the amplitudes
-    # (scene.trace_diffraction_paths() would extract them again).
-    mesh = scene.mesh if scene.mesh.assume_unique_vertices else scene.mesh.dedup_vertices()
-    edges, adjacent, wedge_n = mesh._diffraction_edges_info()
-    diff_paths = _trace_diffraction(
-        mesh,
-        scene.transmitters.reshape(-1, 3),
-        scene.receivers.reshape(-1, 3),
-        edges,
-        hit_tol=None,
-        min_len=None,
-    )
-    a_diff = diffraction_amplitudes(
-        diff_paths.reshape(num_tx, num_rx, -1),
-        scene,
-        frequency,
-        edges=edges,
-        adjacent_triangles=adjacent,
-        wedge_n=wedge_n,
-    )
+    if with_scattering:
+        # Energy conservation (effective roughness): a surface that scatters
+        # a fraction S^2 of the incident power reflects the specular field
+        # scaled by sqrt(1 - S^2), once per bounce.
+        s_arr = torch.as_tensor(scattering_coefficient, dtype=torch.float32, device=frequency.device)
+        obj = paths.objects[..., 1:-1]
+        if s_arr.ndim == 0 or scene.mesh.face_materials is None:
+            s_per_bounce = s_arr.reshape(-1)[0].expand(obj.shape)
+        else:
+            s_per_bounce = s_arr[scene.mesh.face_materials.clamp(0, s_arr.shape[0] - 1)[obj]]
+        a_spec = a_spec * torch.sqrt(1.0 - s_per_bounce**2).prod(dim=-1)
+
+    extra_amplitudes = []
+    if with_diffraction or mixed_signatures:
+        # The edges are extracted once, for the tracers and the amplitudes.
+        mesh = scene.mesh if scene.mesh.assume_unique_vertices else scene.mesh.dedup_vertices()
+        edges, adjacent, wedge_n = mesh._diffraction_edges_info()
+
+    if with_diffraction:
+        from .rt._diffraction import _trace_diffraction, diffraction_amplitudes
+
+        diff_paths = _trace_diffraction(mesh, tx, rx, edges, hit_tol=None, min_len=None)
+        extra_amplitudes.append(
+            diffraction_amplitudes(
+                diff_paths.reshape(num_tx, num_rx, -1),
+                scene,
+                frequency,
+                edges=edges,
+                adjacent_triangles=adjacent,
+                wedge_n=wedge_n,
+            )
+        )
+
+    if mixed_signatures:
+        from .rt._mixed import MixedPathTracer, mixed_amplitudes
+
+        tracer = MixedPathTracer()
+        for signature in mixed_signatures:
+            mixed_paths = tracer.trace_with_edges(scene, mesh, edges, signature)
+            extra_amplitudes.append(
+                mixed_amplitudes(
+                    mixed_paths.reshape(num_tx, num_rx, -1),
+                    scene,
+                    frequency,
+                    edges=edges,
+                    adjacent_triangles=adjacent,
+                    wedge_n=wedge_n,
+                    eta_r=eta_r,
+                    conductivity=conductivity,
+                    thickness=thickness,
+                    types=signature,
+                )
+            )
+
     if coherent:
-        power = torch.abs(a_spec.sum(dim=-1) + a_diff.sum(dim=-1)) ** 2 / z_0
+        total = a_spec.sum(dim=-1)
+        for a in extra_amplitudes:
+            total = total + a.sum(dim=-1)
+        power = torch.abs(total) ** 2 / z_0
     else:
-        power = (torch.abs(a_spec) ** 2).sum(dim=-1) / z_0 + (torch.abs(a_diff) ** 2).sum(dim=-1) / z_0
+        power = (torch.abs(a_spec) ** 2).sum(dim=-1) / z_0
+        for a in extra_amplitudes:
+            power = power + (torch.abs(a) ** 2).sum(dim=-1) / z_0
+
+    if with_scattering:
+        from .rt._scattering import scattering_amplitudes
+
+        scatter_paths = scene.trace_scattering_paths()
+        a_scatter = scattering_amplitudes(
+            scatter_paths.reshape(num_tx, num_rx, -1),
+            scene,
+            frequency,
+            eta_r=eta_r,
+            conductivity=conductivity,
+            scattering_coefficient=scattering_coefficient,
+        )
+        # Scattered phases are random surface noise: the power adds.
+        power = power + (torch.abs(a_scatter) ** 2).sum(dim=-1) / z_0
+
     return power.reshape(*scene.transmitters.shape[:-1], *scene.receivers.shape[:-1])
 
 

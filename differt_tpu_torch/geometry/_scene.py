@@ -170,6 +170,29 @@ class Scene:
 
         return DiffractionPathTracer(**solver_kwargs).trace_paths(self)
 
+    def trace_mixed_paths(self, interactions, **solver_kwargs):
+        """Paths of one mixed reflection/diffraction signature, e.g. ``(REFLECTION, DIFFRACTION)``.
+
+        See :class:`~differt_tpu_torch.rt.MixedPathTracer` (built with
+        ``solver_kwargs``: ``epsilon``, ``hit_tol``, ``min_len``,
+        ``angle_tol``, ``steps``); batch shape ``[num_tx, num_rx,
+        num_candidates]``.
+        """
+        from ..rt._mixed import MixedPathTracer
+
+        return MixedPathTracer(**solver_kwargs).trace_paths(self, interactions)
+
+    def trace_scattering_paths(self, **solver_kwargs):
+        """Single-bounce diffuse-scattering paths off every triangle.
+
+        See :class:`~differt_tpu_torch.rt.ScatteringPathTracer` (built with
+        ``solver_kwargs``: ``hit_tol``, ``min_len``, ``num_samples``); batch
+        shape ``[num_tx, num_rx, num_triangles * num_samples]``.
+        """
+        from ..rt._scattering import ScatteringPathTracer
+
+        return ScatteringPathTracer(**solver_kwargs).trace_paths(self)
+
     def compute_paths(self, order: int | None = None, *, method="exhaustive", **kwargs):
         """Deprecated: :meth:`trace_paths` (``method`` "exhaustive" or "hybrid") or :meth:`launch_paths` ("sbr")."""
         warnings.warn(

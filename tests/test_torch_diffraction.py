@@ -237,15 +237,32 @@ def test_power_map_without_the_flag_is_unchanged() -> None:
     assert torch.equal(coverage.power_map(scene, FREQUENCY, order=1, with_diffraction=False), want)
 
 
-@pytest.mark.parametrize(
-    ("kwargs", "item"),
-    [({"with_scattering": True}, "A10.5"), ({"mixed_signatures": [(0, 1)]}, "A10.6")],
-    ids=["scattering", "mixed"],
-)
-def test_options_not_ported_raise(kwargs: dict, item: str) -> None:
-    scene = to_torch_scene(_scene("occluder"))
-    with pytest.raises(NotImplementedError, match=item):
-        coverage.power_map(scene, FREQUENCY, order=1, **kwargs)
+@pytest.mark.parametrize("option", ["scattering", "mixed"])
+def test_power_map_options_add_their_parts(option: str) -> None:
+    """``with_scattering`` and ``mixed_signatures`` are taken (they raised
+    until they were ported), and the map is the sum of its parts."""
+    from differt_tpu_torch.em import z_0
+    from differt_tpu_torch.rt import mixed_amplitudes, scattering_amplitudes
+
+    scene = to_torch_scene(_scene("canyon"))
+    materials = {"eta_r": torch.tensor([5.24]), "conductivity": torch.tensor([0.1])}
+    frequency = torch.tensor(FREQUENCY)
+    eta_r, conductivity, thickness = coverage._resolve_materials(scene, frequency, materials["eta_r"], materials["conductivity"], None)
+    a_spec = coverage.complex_amplitudes(
+        scene.trace_paths(order=1), scene, frequency, eta_r=eta_r, conductivity=conductivity, thickness=thickness
+    )
+    if option == "scattering":
+        power = coverage.power_map(scene, FREQUENCY, order=1, coherent=False, with_scattering=True, scattering_coefficient=0.3, **materials)
+        paths = scene.trace_scattering_paths()
+        a_extra = scattering_amplitudes(paths, scene, frequency, scattering_coefficient=0.3, **materials)
+        a_spec = a_spec * (1.0 - 0.3**2) ** 0.5
+    else:
+        power = coverage.power_map(scene, FREQUENCY, order=1, coherent=False, mixed_signatures=[(0, 1)], **materials)
+        paths = scene.trace_mixed_paths((0, 1))
+        a_extra = mixed_amplitudes(paths, scene, frequency, **_edges_info(scene.mesh), **materials)
+    assert paths.mask.any()
+    parts = (torch.abs(a_spec) ** 2).sum(-1) / z_0 + (torch.abs(a_extra) ** 2).sum(-1).reshape(a_spec.shape[:-1]) / z_0
+    torch.testing.assert_close(power, parts.reshape(power.shape), rtol=1e-5, atol=0.0)
 
 
 def test_traced_paths_are_diffraction_paths() -> None:

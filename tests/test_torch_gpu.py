@@ -623,3 +623,78 @@ def test_diffraction_map_kernel_against_plain(torch_backend) -> None:
     lit = plain >= plain.max() * 1e-4
     err = (10.0 * torch.log10(power[lit].double() / plain[lit].double())).abs().max()
     assert float(err) <= 0.01
+
+
+def _urban_mixed_scene(device) -> Scene:
+    """urban_scene(2, 2) (146 triangles, 144 edges), the TX above the central crossing, 4 street receivers."""
+    rx = torch.tensor([[50.0, 0.0, 1.5], [0.0, -50.0, 1.5], [-50.0, 0.0, 1.5], [25.0, 50.0, 1.5]], device=device)
+    return Scene(
+        transmitters=torch.tensor([[0.0, 0.0, 40.0]], device=device),
+        receivers=rx,
+        mesh=scenes.urban_scene(2, 2, device=device).mesh,
+    )
+
+
+@pytest.mark.parametrize("kind", ["mixed", "scattering"])
+def test_anyhit_kernel_on_mixed_and_scattering_segments(kind: str) -> None:
+    from differt_tpu_torch.ops._dispatch import anyhit_segments
+
+    device = cuda_or_skip()
+    scene = _urban_mixed_scene(device)
+    mesh = scene.mesh.dedup_vertices()
+    launches = _rt.LAUNCHES
+    paths = scene.trace_mixed_paths((0, 1)) if kind == "mixed" else scene.trace_scattering_paths()
+    torch.cuda.synchronize()
+    assert _rt.LAUNCHES == launches + 1
+    v = paths.vertices
+    o, d, th = anyhit_segments(v[..., :-1, :], v[..., 1:, :] - v[..., :-1, :])
+    tv = mesh.triangle_vertices.contiguous()
+    want = _rt.ray_intersect_any_triangle_reference(o, d, tv, None, hit_threshold=th)
+    got = _rt.ray_intersect_any_triangle_cuda(o, d, None, hit_threshold=th, bvh=mesh.bvh)
+    assert torch.equal(got, want) and bool(got.any()) and not bool(got.all())
+    assert bool(paths.mask.any())
+
+
+def test_mixed_map_on_the_card_against_the_cpu(torch_backend) -> None:
+    """The whole map on the card: the kernels' run equals the plain run
+    there; against the CPU, the Fermat points of the two devices stop apart
+    within float32's resolution of the path length (centimetres along long
+    edges at city scale), so the maps agree within 0.1 dB."""
+    from differt_tpu_torch import coverage
+    from differt_tpu_torch.rt._mixed import MixedPathTracer
+
+    device = cuda_or_skip()
+    scene = _urban_mixed_scene(device)
+    run = dataclasses.replace(scene, mesh=dataclasses.replace(scene.mesh))
+    options = {"order": 1, "with_diffraction": True, "mixed_signatures": [(0, 1), (1, 0)], "with_scattering": True}
+    materials = {"eta_r": torch.tensor([5.24]), "conductivity": torch.tensor([0.1])}
+    counts = (_rt.LAUNCHES, _rt.REFERENCE_CALLS, _trace.LAUNCHES, _trace.REFERENCE_CALLS, _bvh.BUILDS)
+    power = coverage.power_map(run, 2.4e9, **options, **materials)
+    torch.cuda.synchronize()
+    now = (_rt.LAUNCHES, _rt.REFERENCE_CALLS, _trace.LAUNCHES, _trace.REFERENCE_CALLS, _bvh.BUILDS)
+    # Any-hit: the diffraction half, two signatures, the scattering; one trace; one BVH.
+    assert tuple(b - a for a, b in zip(counts, now)) == (4, 0, 1, 0, 1)
+    cpu = dataclasses.replace(
+        scene, transmitters=scene.transmitters.cpu(), receivers=scene.receivers.cpu(), mesh=_mesh_on_cpu(scene.mesh)
+    )
+    on_cpu = coverage.power_map(cpu, 2.4e9, **options, **materials)
+    paths = MixedPathTracer().trace_paths(scene, (1, 0))
+    cpu_paths = MixedPathTracer().trace_paths(cpu, (1, 0))
+    torch_backend()
+    plain = coverage.power_map(scene, 2.4e9, **options, **materials)
+    assert bool(torch.isfinite(power).all()) and bool((power > 0).all())
+
+    def db_err(got, want):
+        lit = want >= want.max() * 1e-4
+        return float((10.0 * torch.log10(got[lit].double() / want[lit].double())).abs().max())
+
+    assert db_err(power, plain) <= 0.01
+    assert db_err(power.cpu(), on_cpu) <= 0.1
+    # The paths: the same masks where the points agree, the same lengths where both are valid.
+    v, cpu_v = paths.vertices.cpu(), cpu_paths.vertices
+    apart = (v - cpu_v).abs().amax(dim=(-1, -2)) > 1e-4
+    mask = paths.mask.cpu()
+    assert bool(mask.any()) and torch.equal(mask[~apart], cpu_paths.mask[~apart])
+    both = mask & cpu_paths.mask
+    lengths = [(x[..., 1:, :] - x[..., :-1, :]).double().norm(dim=-1).sum(-1)[both] for x in (v, cpu_v)]
+    assert float((lengths[0] - lengths[1]).abs().max() / lengths[1].max()) <= 1e-6

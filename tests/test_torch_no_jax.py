@@ -26,6 +26,14 @@ paths = scene.launch_paths(order=2, num_rays=2000, max_dist=4.0)
 assert paths.masks.shape == (1, 8, 8, 2000, 3) and bool(paths.masks.any())
 diffraction = power_map(scene, 2.4e9, order=1, with_diffraction=True)
 assert diffraction.shape == (1, 8, 8) and bool(torch.isfinite(diffraction).all()) and bool((diffraction != power).any())
+mixed = scene.trace_mixed_paths((0, 1))
+assert mixed.shape[:2] == (1, 64) and mixed.order == 2 and bool(mixed.mask.any())
+scattered = scene.trace_scattering_paths()
+assert scattered.shape == (1, 64, scene.mesh.num_triangles) and bool(scattered.mask.any())
+with_mixed = power_map(scene, 2.4e9, order=1, mixed_signatures=[(0, 1), (1, 0)])
+assert with_mixed.shape == (1, 8, 8) and bool(torch.isfinite(with_mixed).all()) and bool((with_mixed != power).any())
+with_scattering = power_map(scene, 2.4e9, order=1, with_scattering=True, scattering_coefficient=0.3)
+assert with_scattering.shape == (1, 8, 8) and bool(torch.isfinite(with_scattering).all()) and bool((with_scattering != power).any())
 hybrid = power_map(scene, 2.4e9, order=1, solver="hybrid", num_rays=2000)
 assert hybrid.shape == (1, 8, 8) and bool(torch.isfinite(hybrid).all()) and float(hybrid.max()) > 0.0
 pattern = HWDipolePattern(2.4e9, direction=(0.0, 0.0, 1.0), center=scene.transmitters[0])

@@ -143,3 +143,54 @@ def cuda_or_skip() -> torch.device:
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; run on the GPU host")
     return torch.device("cuda")
+
+
+
+def fermat_hessian_eigenvalues(full_paths, object_vectors) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per path: the least and largest eigenvalues of the path length's Hessian over the objects' coordinates in metres, and the length.
+
+    ``full_paths`` ``[*batch, n + 2, 3]`` (TX, the points, RX) and
+    ``object_vectors`` ``[*batch, n, d, 3]``; zero vectors (an edge's pad)
+    are left out. In float64.
+    """
+    p = np.asarray(full_paths, np.float64)
+    batch = p.shape[:-2]
+    n, d = np.shape(object_vectors)[-3:-1]
+    v = np.broadcast_to(np.asarray(object_vectors, np.float64), (*batch, n, d, 3))
+    # Unit vectors: coordinates in metres along each object (an edge's
+    # vector is the whole edge).
+    norm = np.linalg.norm(v, axis=-1, keepdims=True)
+    v = v / np.where(norm > 0.0, norm, 1.0)
+    seg = np.diff(p, axis=-2)
+    length = np.sqrt((seg**2).sum(-1) + 1e-12)
+    u = seg / length[..., None]
+    # The Hessian of each segment's length over its end: (I - u u^T) / l.
+    m = (np.eye(3) - u[..., :, None] * u[..., None, :]) / length[..., None, None]
+    blocks = np.zeros((*batch, n, n, 3, 3))
+    for j in range(n):
+        blocks[..., j, j, :, :] = m[..., j, :, :] + m[..., j + 1, :, :]
+        if j + 1 < n:
+            blocks[..., j, j + 1, :, :] = blocks[..., j + 1, j, :, :] = -m[..., j + 1, :, :]
+    hessian = np.einsum("...jkx,...jlxy,...lmy->...jklm", v, blocks, v).reshape(*batch, n * d, n * d)
+    live = (np.abs(v).sum(-1) > 0).reshape(*batch, n * d)
+    least, largest = np.full(batch, np.inf), np.full(batch, np.inf)
+    for idx in np.ndindex(*batch):
+        if live[idx].any():
+            eig = np.linalg.eigvalsh(hessian[idx][np.ix_(live[idx], live[idx])])
+            least[idx], largest[idx] = eig[0], eig[-1]
+    return least, largest, length.sum(-1)
+
+
+def fermat_resolution(full_paths, object_vectors, num_ulps: int) -> np.ndarray:
+    """Per path: how far apart two float32 Fermat solvers may stop, in metres.
+
+    The Fermat solver's line search takes a step only if the path's float32
+    length falls, so it stops wherever the length is within rounding of its
+    minimum: within ``sqrt(2 k ulp(L) / lambda)`` of the optimum, ``lambda``
+    the least eigenvalue of :func:`fermat_hessian_eigenvalues` and ``k``
+    the ulps of rounding in the computed length. Two solvers that round
+    differently stop anywhere within twice that.
+    """
+    least, _, length = fermat_hessian_eigenvalues(full_paths, object_vectors)
+    ulp = np.spacing(length.astype(np.float32)).astype(np.float64)
+    return 2.0 * np.sqrt(2.0 * num_ulps * ulp / np.maximum(least, 1e-30))
