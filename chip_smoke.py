@@ -54,6 +54,13 @@ version, and drives three paths, each counted from zero:
   on the coverage path's scene, both segments of its 2.65 M paths in one
   any-hit launch, the TX gradient, the plain versions on 8 receivers, and
   ``S = 0`` against the plain map;
+- ingest and DeepMIMO (phase 20): the coverage city written as a Sionna
+  scene (``io.export_scene_xml``, one PLY per object) and as an OBJ file,
+  loaded back on the card (``Scene.load_xml``, ``Mesh.load_obj`` through
+  the native parser), traced at orders 0-2 on the loaded mesh (128, 2.65 M
+  and 16.8 M paths: one any-hit and two fused-trace launches) and exported
+  with ``deepmimo.export``; held against the plain versions on 8
+  receivers and against ``coverage.complex_amplitudes`` at order 1;
 
 and checks that each path call went through its kernels, never through
 their plain versions, and built its mesh's BVH once. Then it profiles
@@ -2280,6 +2287,216 @@ def run_scattering(city, kernels: dict, materials: dict) -> None:
     )
 
 
+# -- Ingest and DeepMIMO (phase 20) ----------------------------------------------
+
+
+def write_obj(mesh, path) -> None:
+    """The mesh as a Wavefront OBJ file of ``v`` and ``f`` lines; each float32 coordinate exactly (its shortest repr)."""
+    vertices = mesh.vertices.cpu().numpy().astype(np.float64).tolist()
+    lines = [f"v {x!r} {y!r} {z!r}" for x, y, z in vertices]
+    lines += [f"f {a} {b} {c}" for a, b, c in (mesh.triangles.cpu() + 1).tolist()]
+    path.write_text("\n".join(lines) + "\n")
+
+
+def dm_errors(got, want, mask: torch.Tensor) -> dict:
+    """Per-path differences of two DeepMIMO exports on ``mask``: power (dB), phase on unit phasors
+    (degrees), delay (relative), and the angles (degrees) of directions off the z axis."""
+    turn = torch.deg2rad(got.phase[mask].double() - want.phase[mask].double())
+    phasor = torch.rad2deg(torch.abs(torch.polar(torch.ones_like(turn), turn) - 1.0))
+    off_pole = lambda el: (el[mask] > 0.01) & (el[mask] < 179.99)  # noqa: E731
+    angles = 0.0
+    for az, el in (("aoa_az", "aoa_el"), ("aod_az", "aod_el")):
+        keep = off_pole(getattr(want, el)) & off_pole(getattr(got, el))
+        for name in (az, el):
+            diff = (getattr(got, name)[mask] - getattr(want, name)[mask])[keep].abs()
+            angles = max(angles, float(diff.max()) if diff.numel() else 0.0)
+    return {
+        "power_db": float((got.power[mask] - want.power[mask]).abs().max()),
+        "phase_deg": float(phasor.max()),
+        "delay_rel": float(((got.delay[mask] - want.delay[mask]).abs() / want.delay[mask]).max()),
+        "angle_deg": angles,
+    }
+
+
+def run_ingest(city, kernels: dict, order2_candidates: torch.Tensor) -> None:
+    """Phase 20: the coverage city written as a Sionna scene (one PLY per object)
+    and as an OBJ file, loaded back on the card (``Scene.load_xml``,
+    ``Mesh.load_obj`` through the native parser), traced at orders 0-2 on the
+    loaded mesh (order 0 through one ``anyhit.cu`` launch, orders 1 and 2 one
+    ``trace.cu`` launch each, one BVH build) and exported with
+    ``deepmimo.export``. Held against the plain versions on 8 receivers, and
+    the order-1 powers against ``coverage.complex_amplitudes``."""
+    from pathlib import Path
+
+    from differt_tpu_torch import coverage, io, native, ops
+    from differt_tpu_torch.em import materials, z_0
+    from differt_tpu_torch.geometry import Mesh, Scene
+    from differt_tpu_torch.io import _obj
+    from differt_tpu_torch.plugins import deepmimo
+
+    device = city.mesh.device
+    folder = Path(__file__).resolve().parent / "build" / "smoke_scene"
+    mesh = city.mesh
+    start = time.perf_counter()
+    xml_path = io.export_scene_xml(mesh, folder)
+    export_ms = (time.perf_counter() - start) * 1e3
+    obj_path = folder / "city.obj"
+    write_obj(mesh, obj_path)
+
+    start = time.perf_counter()
+    if native.load() is None:
+        msg = "the native library (the OBJ parser) did not build"
+        raise AssertionError(msg)
+    native_build_ms = (time.perf_counter() - start) * 1e3
+    native.OBJ_CALLS = native.OBJ_FALLBACK_CALLS = 0
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    loaded = Scene.load_xml(xml_path, device=device)
+    torch.cuda.synchronize()
+    load_xml_ms = (time.perf_counter() - start) * 1e3
+    start = time.perf_counter()
+    from_obj = Mesh.load_obj(obj_path, device=device)
+    torch.cuda.synchronize()
+    load_obj_ms = (time.perf_counter() - start) * 1e3
+    parsers = {"native": native.OBJ_CALLS, "python": native.OBJ_FALLBACK_CALLS}
+    if parsers != {"native": 1, "python": 0}:
+        msg = f"the OBJ went through the parsers {parsers}, expected the native one once"
+        raise AssertionError(msg)
+    start = time.perf_counter()
+    native.parse_obj_geometry(obj_path)
+    native_parse_ms = (time.perf_counter() - start) * 1e3
+    start = time.perf_counter()
+    _obj._load_obj_python(obj_path, "cpu")
+    python_parse_ms = (time.perf_counter() - start) * 1e3
+
+    num = mesh.num_triangles
+    names = {materials[n].name for n in loaded.mesh.material_names}
+    checks = {
+        "xml_triangles": loaded.mesh.num_triangles,
+        "obj_triangles": from_obj.num_triangles,
+        "xml_vertices_equal": torch.equal(loaded.mesh.triangle_vertices, mesh.triangle_vertices),
+        "obj_vertices_equal": torch.equal(from_obj.triangle_vertices, mesh.triangle_vertices),
+        "materials_equal": names == {materials[n].name for n in mesh.material_names}
+        and bool((loaded.mesh.face_materials == 0).all()),
+        "objects": loaded.mesh.num_objects == mesh.num_objects,
+    }
+    if checks != {
+        "xml_triangles": num, "obj_triangles": num, "xml_vertices_equal": True,
+        "obj_vertices_equal": True, "materials_equal": True, "objects": True,
+    } or num != 20_738:
+        msg = f"the loaded city differs from the generated one: {checks}"
+        raise AssertionError(msg)
+    print(
+        f"phase 20 ingest: {mesh.num_objects} objects, {num} triangles; native_library_ms={native_build_ms:.1f}"
+        f" export_scene_xml_ms={export_ms:.1f}"
+        f" load_xml_ms={load_xml_ms:.1f} load_obj_ms={load_obj_ms:.1f} (native parser {parsers['native']} call,"
+        f" Python parser {parsers['python']}); parse alone: native_ms={native_parse_ms:.1f}"
+        f" python_ms={python_parse_ms:.1f}; materials {loaded.mesh.material_names} = {sorted(names)}",
+        flush=True,
+    )
+
+    scene = Scene(transmitters=city.transmitters, receivers=city.receivers, mesh=loaded.mesh)
+    num_rx = scene.num_receivers
+
+    def pipeline(run_scene, candidates):
+        walls = {}
+        paths = []
+        for order in (0, 1, 2):
+            start = time.perf_counter()
+            if order < 2:
+                paths.append(run_scene.trace_paths(order=order))
+            else:
+                paths.append(run_scene.trace_paths(path_candidates=candidates))
+            torch.cuda.synchronize()
+            walls[f"trace_order_{order}"] = time.perf_counter() - start
+        start = time.perf_counter()
+        out = deepmimo.export(paths=paths, scene=run_scene, frequency=FREQUENCY, include_primitives=True)
+        torch.cuda.synchronize()
+        walls["export"] = time.perf_counter() - start
+        return out, walls, paths
+
+    pipeline(fresh(scene), order2_candidates[:4096])  # warm-up: the first CUDA call of each op
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    want = {"anyhit": 1, "trace": 2, "bvh_builds": 1}
+    (out, walls, paths), wall, card_ms, counts = counted_call(
+        "ingest and DeepMIMO", lambda: pipeline(fresh(scene), order2_candidates), want
+    )
+    peak = torch.cuda.max_memory_allocated() - base
+    mask = out.mask
+    num_paths = out.mask.numel()
+    valid = int(mask.sum())
+    finite = bool(torch.isfinite(out.power[mask]).all())
+    if not (valid and finite and num_paths == num_rx * (1 + num + order2_candidates.shape[0])):
+        msg = f"the export has {valid} valid paths of {num_paths}, finite powers {finite}"
+        raise AssertionError(msg)
+
+    # Order 1 against the coverage chain's |a|^2 / z_0 (tests/test_coverage.py's consistency check).
+    frequency = torch.tensor(FREQUENCY, device=device)
+    eta_r, conductivity, thickness = coverage._resolve_materials(scene, frequency, None, None, None)
+    a = coverage.complex_amplitudes(
+        paths[1], scene, frequency, eta_r=eta_r, conductivity=conductivity, thickness=thickness
+    ).reshape(1, num_rx, -1)
+    order1 = slice(1, 1 + num)
+    lit = mask[..., order1]
+    cov_db = 10.0 * torch.log10(torch.abs(a[lit]) ** 2 / z_0)
+    consistency_db = float((cov_db - out.power[..., order1][lit]).abs().max())
+
+    # The plain versions on the 8 receivers with the most valid paths: order 2
+    # on the first candidates, as many as keep the plain run under 30 s (from
+    # a first plain run on 4,096).
+    busiest = torch.argsort(mask[0].sum(dim=-1), descending=True, stable=True)[:8]
+    scene8 = dataclasses.replace(scene, receivers=city.receivers.reshape(-1, 3)[busiest])
+    size = 4096
+    ops.set_backend("torch")
+    try:
+        start = time.perf_counter()
+        plain, _, _ = pipeline(fresh(scene8), order2_candidates[:size])
+        plain_s = time.perf_counter() - start
+        scale = min(order2_candidates.shape[0] // size, int(20.0 / plain_s))
+        if scale > 1:
+            size *= scale
+            start = time.perf_counter()
+            plain, _, _ = pipeline(fresh(scene8), order2_candidates[:size])
+            plain_s = time.perf_counter() - start
+    finally:
+        ops.set_backend("auto")
+    card, _, _ = pipeline(fresh(scene8), order2_candidates[:size])
+    masks_equal = torch.equal(card.mask, plain.mask) and torch.equal(card.inter, plain.inter)
+    errors = dm_errors(card, plain, plain.mask)
+    if not (
+        masks_equal and int(plain.mask.sum()) > 0 and errors["power_db"] <= 0.01 and errors["phase_deg"] <= 0.01
+        and errors["delay_rel"] <= 1e-6 and errors["angle_deg"] <= 1e-3 and consistency_db <= 0.01
+    ):
+        msg = (
+            f"phase 20 checks failed: masks equal {masks_equal}, errors {errors},"
+            f" order-1 power vs complex_amplitudes {consistency_db} dB"
+        )
+        raise AssertionError(msg)
+
+    kernels["anyhit"]["launches"] += counts["anyhit"]
+    kernels["trace"]["launches"] += counts["trace"]
+    kernels["anyhit"]["launches_by_path"]["ingest_deepmimo"] = counts["anyhit"]
+    kernels["trace"]["launches_by_path"]["ingest_deepmimo"] = counts["trace"]
+    orders = {o: num_rx * n for o, n in ((0, 1), (1, num), (2, order2_candidates.shape[0]))}
+    print(
+        f"phase 20 DeepMIMO on the loaded city: paths per order {json.dumps(orders)} total={num_paths}"
+        f" valid={valid} wall_s={wall:.4f} card_ms={card_ms:.2f}"
+        f" split_s={json.dumps({k: round(v, 4) for k, v in walls.items()})}"
+        f" exported_paths_per_s={num_paths / walls['export']:.4g} peak_gib={peak / 2**30:.3f}"
+        f" counts={json.dumps(counts)}",
+        flush=True,
+    )
+    print(
+        f"phase 20 checks: plain run on the 8 receivers with the most valid paths (order 2: the first {size}"
+        f" candidates) {plain_s:.2f} s,"
+        f" masks equal, valid={int(plain.mask.sum())}, errors {json.dumps({k: float(f'{v:.3g}') for k, v in errors.items()})}"
+        f" (gates 0.01 dB, 0.01 deg, 1e-6, 1e-3 deg); order-1 power vs complex_amplitudes"
+        f" max_err_db={consistency_db:.3g} on {int(lit.sum())} paths (gate 0.01); every valid power finite",
+        flush=True,
+    )
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         msg = "chip_smoke.py needs a CUDA device, and none is visible."
@@ -2590,6 +2807,7 @@ def main() -> None:
     run_diffraction(city, kernels, materials)
     run_mixed(device, kernels, materials)
     run_scattering(city, kernels, materials)
+    run_ingest(city, kernels, main_candidates[: 32 * 4096])
 
     order2 = main_candidates[: 32 * 4096]
     profile("coverage order 2, 32 chunks", lambda: coverage_run(city, 2, order2), ("trace_kernel",))

@@ -17,19 +17,24 @@ walking a BVH that each mesh builds once (``Mesh.bvh``); each has a plain
 PyTorch version, which CPU tensors use (``ops.set_backend`` picks
 otherwise). The entry points that make tensors (scenes, ``Mesh``
 constructors, candidates, the lattice, antennas, ``interop``) build on the
-card unless given ``device="cpu"``. The package never imports JAX.
+card unless given ``device="cpu"``. Scenes load from disk (``io``: OBJ,
+with the native parser, PLY and Sionna XML; ``Scene.load_xml``) and
+traced paths export to DeepMIMO's per-path channels
+(``plugins.deepmimo.export``). The package never imports JAX.
 """
 
-from . import coverage, em, geometry, interop, native, ops, parallel, rt, scenes, utils
+from . import coverage, em, geometry, interop, io, native, ops, parallel, plugins, rt, scenes, utils
 
 __all__ = (
     "coverage",
     "em",
     "geometry",
     "interop",
+    "io",
     "native",
     "ops",
     "parallel",
+    "plugins",
     "rt",
     "scenes",
     "utils",

@@ -385,7 +385,7 @@ def _coverage_tile(
     coherent: bool,
     megakernel: bool | None,
     batch_size: int | None = 512,
-    smoothing_factor: float | None = None,
+    smoothing_factor: float | torch.Tensor | None = None,
     tx_pattern=None,
 ) -> torch.Tensor:
     """One (RX tile, candidate chunk) step of :func:`power_map_chunked`.
@@ -442,7 +442,7 @@ def power_map_chunked(
     tx_pattern=None,
     megakernel: bool | None = None,
     batch_size: int | None = 512,
-    smoothing_factor: float | None = None,
+    smoothing_factor: float | torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Coverage map streamed through fixed-size tiles, ``[*tx_batch, *rx_batch]``.
 

@@ -87,20 +87,26 @@ def slab_reflection_coefficients(
     """Reflection off a finite-thickness slab (multi-bounce interference).
 
     Negative ``thickness`` selects the semi-infinite (plain Fresnel) result.
+    The slab branch is then computed at a thickness of 0, not at the
+    negative one: on a good conductor (ITU ``Metal``, 10^7 S/m) a negative
+    thickness makes ``exp(-2j q)`` overflow, and the discarded branch's
+    ``0 * inf`` would turn every gradient through it into NaN (the JAX
+    package's is). The values are the same bits either way.
     """
     n_r = _as_complex(n_r)
     thickness = torch.as_tensor(thickness)
     r_s_inf, r_p_inf = reflection_coefficients(n_r, cos_theta_i)
 
+    use_slab = thickness >= 0.0
+    slab_thickness = torch.where(use_slab, thickness, 0.0)
     sin_theta_sq = 1.0 - cos_theta_i * cos_theta_i
     a = torch.sqrt(n_r * n_r - sin_theta_sq)
-    q = (2.0 * math.pi * thickness / wavelength) * a
+    q = (2.0 * math.pi * slab_thickness / wavelength) * a
     phase = torch.exp(-2j * q)
 
     r_s_slab = safe_divide(r_s_inf * (1.0 - phase), 1.0 - r_s_inf * r_s_inf * phase)
     r_p_slab = safe_divide(r_p_inf * (1.0 - phase), 1.0 - r_p_inf * r_p_inf * phase)
 
-    use_slab = thickness >= 0.0
     return (
         torch.where(use_slab, r_s_slab, r_s_inf),
         torch.where(use_slab, r_p_slab, r_p_inf),

@@ -11,15 +11,20 @@ from ._candidates import (
 )
 from ._lattice import fibonacci_lattice, viewing_frustum
 from ._mesh import Mesh
-from ._paths import LaunchedPaths, TracedPaths, concatenate_paths
-from ._scene import Scene
+from ._paths import LaunchedPaths, TracedPaths, concatenate_paths, merge_cell_ids
+from ._scene import Scene, TriangleScene
 from ._vectors import (
     assemble_path,
     cartesian_to_spherical,
+    min_distance_between_cells,
     normalize,
     orthogonal_basis,
     path_length,
     perpendicular_vector,
+    rotation_matrix_along_axis,
+    rotation_matrix_along_x_axis,
+    rotation_matrix_along_y_axis,
+    rotation_matrix_along_z_axis,
     spherical_to_cartesian,
 )
 
@@ -29,6 +34,7 @@ __all__ = (
     "Scene",
     "SizedIterator",
     "TracedPaths",
+    "TriangleScene",
     "assemble_path",
     "cartesian_to_spherical",
     "concatenate_paths",
@@ -39,10 +45,16 @@ __all__ = (
     "generate_all_path_candidates_iter",
     "generate_filtered_path_candidates",
     "generate_path_candidates",
+    "merge_cell_ids",
+    "min_distance_between_cells",
     "normalize",
     "orthogonal_basis",
     "path_length",
     "perpendicular_vector",
+    "rotation_matrix_along_axis",
+    "rotation_matrix_along_x_axis",
+    "rotation_matrix_along_y_axis",
+    "rotation_matrix_along_z_axis",
     "spherical_to_cartesian",
     "viewing_frustum",
 )

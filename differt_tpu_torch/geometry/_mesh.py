@@ -1,22 +1,25 @@
-"""Triangle meshes (PyTorch port of ``differt_tpu.geometry._mesh``, main-path subset).
+"""Triangle meshes (PyTorch port of ``differt_tpu.geometry._mesh``).
 
 A :class:`Mesh` is a frozen dataclass of tensors; edits return new meshes
 through :func:`dataclasses.replace`. Triangle indices are ``int64`` (what
 PyTorch indexing takes) where the JAX package keeps ``int32``.
 
-The constructors build on the card (``device=None`` means
-``torch.device("cuda")``) unless asked for another device. A mesh keeps
-the kernels' acceleration structure (:attr:`Mesh.bvh`), built at first use
-and rebuilt when its tensors are edited in place.
+The constructors and loaders build on the card (``device=None`` means
+``torch.device("cuda")``) unless asked for another device. Randomized
+edits take a ``torch.Generator`` where the JAX package takes a key. A mesh
+keeps the kernels' acceleration structure (:attr:`Mesh.bvh`), built at
+first use and rebuilt when its tensors are edited in place; an edit that
+returns a new mesh starts without one.
 """
 
 import dataclasses
 import warnings
-from collections.abc import Iterator
+from collections.abc import Callable, Iterator
+from os import PathLike
 
 import torch
 
-from ._vectors import _cross, _dot, normalize, orthogonal_basis
+from ._vectors import _cross, _dot, normalize, orthogonal_basis, rotation_matrix_along_axis
 
 
 def _on_card(device: torch.device | str | None) -> torch.device | str:
@@ -43,6 +46,118 @@ def _first_occurrences(inverse: torch.Tensor, num_unique: int) -> torch.Tensor:
     return first.scatter_reduce_(0, inverse, positions, "amin")
 
 
+class _VertexSelection:
+    """Out-of-place, differentiable edits of the vertices of a triangle selection (``mesh.at[selection]``).
+
+    The selected triangles' corners resolve to vertex ids, each kept once
+    (its first corner wins a scatter-min race over corner positions), so a
+    vertex shared by several selected triangles takes one update: what
+    makes accumulating edits such as ``add`` well defined. Values broadcast
+    against ``[num_corners, 3]``; a repeated corner's value is dropped.
+    Every edit returns a new mesh (without a BVH).
+    """
+
+    __slots__ = ("_mesh", "_selection")
+
+    def __init__(self, mesh: "Mesh", selection) -> None:
+        if not isinstance(selection, slice) and torch.as_tensor(selection).ndim > 1:
+            shape = tuple(torch.as_tensor(selection).shape)
+            msg = (
+                "Triangle selections must be scalars, slices, or 1-D"
+                f" arrays; got a {len(shape)}-D array of shape {shape}."
+            )
+            raise ValueError(msg)
+        self._mesh = mesh
+        self._selection = selection
+
+    def __repr__(self) -> str:
+        return f"{type(self._mesh).__name__}.at[{self._selection!r}]"
+
+    def _corner_ids(self) -> torch.Tensor:
+        """Vertex ids of the selected triangles' corners (with repeats)."""
+        selection = self._selection
+        if not isinstance(selection, slice):
+            selection = torch.as_tensor(selection, device=self._mesh.device)
+        return self._mesh.triangles[selection].reshape(-1)
+
+    def _unique_vertex_ids(self) -> torch.Tensor:
+        """:meth:`_corner_ids` with every repeat (and out-of-range id) parked at ``num_vertices``."""
+        ids = self._corner_ids()
+        num_vertices = self._mesh.vertices.shape[0]
+        slots = torch.arange(ids.shape[0], device=ids.device)
+        guarded = torch.where((ids >= 0) & (ids < num_vertices), ids, num_vertices)
+        winner = torch.full((num_vertices + 1,), ids.shape[0], dtype=torch.int64, device=ids.device)
+        winner = winner.scatter_reduce(0, guarded, slots, "amin")
+        return torch.where(winner[guarded] == slots, guarded, num_vertices)
+
+    def get(self) -> torch.Tensor:
+        """``[num_corners, 3]``: the selected triangles' corner coordinates."""
+        return self._mesh.vertices[self._corner_ids()]
+
+    def _edited(self, update: Callable[[torch.Tensor, torch.Tensor], torch.Tensor], values) -> "Mesh":
+        vertices = self._mesh.vertices
+        ids = self._unique_vertex_ids()
+        keep = ids < vertices.shape[0]
+        rows = ids[keep]
+        if values is not None:
+            values = torch.as_tensor(values, dtype=vertices.dtype, device=vertices.device)
+            values = torch.broadcast_to(values, (ids.shape[0], 3))[keep]
+        # The rows are unique, so a plain (differentiable) index_put writes each once.
+        new_rows = update(vertices[rows], values)
+        return dataclasses.replace(self._mesh, vertices=vertices.index_put((rows,), new_rows))
+
+    def set(self, values) -> "Mesh":
+        """Set the selected vertices to ``values``."""
+        return self._edited(lambda _, v: v, values)
+
+    def add(self, values) -> "Mesh":
+        """Add ``values`` to the selected vertices (shared ones once)."""
+        return self._edited(torch.add, values)
+
+    def sub(self, values) -> "Mesh":
+        """Subtract ``values`` from the selected vertices."""
+        return self._edited(torch.sub, values)
+
+    def mul(self, values) -> "Mesh":
+        """Multiply the selected vertices by ``values``."""
+        return self._edited(torch.mul, values)
+
+    def div(self, values) -> "Mesh":
+        """Divide the selected vertices by ``values``."""
+        return self._edited(torch.div, values)
+
+    def pow(self, values) -> "Mesh":
+        """Raise the selected vertices to the power ``values``."""
+        return self._edited(torch.pow, values)
+
+    def min(self, values) -> "Mesh":
+        """The elementwise minimum of the selected vertices and ``values``."""
+        return self._edited(torch.minimum, values)
+
+    def max(self, values) -> "Mesh":
+        """The elementwise maximum of the selected vertices and ``values``."""
+        return self._edited(torch.maximum, values)
+
+    def apply(self, func: Callable[[torch.Tensor], torch.Tensor]) -> "Mesh":
+        """Apply the elementwise ``func`` to the selected vertices (shared ones once)."""
+        return self._edited(lambda rows, _: func(rows), None)
+
+
+class _VertexUpdates:
+    """The indexable entry point of :attr:`Mesh.at`."""
+
+    __slots__ = ("_mesh",)
+
+    def __init__(self, mesh: "Mesh") -> None:
+        self._mesh = mesh
+
+    def __getitem__(self, selection) -> _VertexSelection:
+        return _VertexSelection(self._mesh, selection)
+
+    def __repr__(self) -> str:
+        return f"{type(self._mesh).__name__}.at"
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A triangle mesh with optional materials, sub-objects and active mask.
@@ -55,6 +170,8 @@ class Mesh:
     """``[num_vertices, 3]`` float32 vertex coordinates."""
     triangles: torch.Tensor
     """``[num_triangles, 3]`` int64 vertex indices."""
+    face_colors: torch.Tensor | None = None
+    """Optional ``[num_triangles, 3]`` float32 RGB colour of each face (not part of the geometry)."""
     face_materials: torch.Tensor | None = None
     """Optional ``[num_triangles]`` material indices into :attr:`material_names` (-1 = unset)."""
     material_names: tuple[str, ...] = ()
@@ -93,14 +210,45 @@ class Mesh:
         return self.triangles.shape[0]
 
     @property
+    def num_active_triangles(self) -> int | torch.Tensor:
+        """Number of active triangles (a 0-d tensor if :attr:`mask` is set)."""
+        return self.mask.sum() if self.mask is not None else self.num_triangles
+
+    @property
+    def num_quads(self) -> int:
+        """Number of quadrilaterals (needs :attr:`assume_quads`)."""
+        if not self.assume_quads:
+            msg = "num_quads is only defined when 'assume_quads' is enabled."
+            raise ValueError(msg)
+        return self.num_triangles // 2
+
+    @property
+    def num_active_quads(self) -> int | torch.Tensor:
+        """Number of active quads (a 0-d tensor if :attr:`mask` is set)."""
+        if not self.assume_quads:
+            msg = "num_active_quads is only defined when 'assume_quads' is enabled."
+            raise ValueError(msg)
+        return self.mask[::2].sum() if self.mask is not None else self.num_quads
+
+    @property
     def num_primitives(self) -> int:
         """Quads if :attr:`assume_quads` else triangles."""
-        return self.num_triangles // 2 if self.assume_quads else self.num_triangles
+        return self.num_quads if self.assume_quads else self.num_triangles
+
+    @property
+    def num_active_primitives(self) -> int | torch.Tensor:
+        """Active quads if :attr:`assume_quads` else active triangles."""
+        return self.num_active_quads if self.assume_quads else self.num_active_triangles
 
     @property
     def num_objects(self) -> int:
         """Number of sub-objects (1 if no :attr:`object_bounds`)."""
         return self.object_bounds.shape[0] if self.object_bounds is not None else 1
+
+    @property
+    def is_empty(self) -> bool:
+        """Whether this mesh has no triangle."""
+        return self.triangles.numel() == 0
 
     # -- Derived geometry -------------------------------------------------
 
@@ -168,6 +316,31 @@ class Mesh:
     def set_mask(self, mask: torch.Tensor | None) -> "Mesh":
         return dataclasses.replace(self, mask=mask)
 
+    def set_face_colors(self, colors=None, *, generator: torch.Generator | None = None) -> "Mesh":
+        """A copy with face colours: ``colors`` (``[3]`` or ``[num_triangles, 3]``), or random ones from ``generator``.
+
+        Random colours are drawn once per object (one for the whole mesh
+        without :attr:`object_bounds`), on the generator's device.
+
+        >>> box = Mesh.box(device="cpu").set_face_colors([1.0, 0.0, 0.0])
+        >>> box.face_colors.shape, box.face_colors[0].tolist()
+        (torch.Size([10, 3]), [1.0, 0.0, 0.0])
+        """
+        if (colors is None) == (generator is None):
+            msg = "You must specify one of 'colors' or 'generator', not both."
+            raise ValueError(msg)
+        if generator is not None:
+            draw = lambda n: torch.rand((n, 3), generator=generator, device=generator.device).to(self.device)  # noqa: E731
+            if self.object_bounds is not None:
+                counts = self.object_bounds[:, 1] - self.object_bounds[:, 0]
+                colors = torch.repeat_interleave(draw(self.object_bounds.shape[0]), counts, dim=0)
+            else:
+                colors = draw(1)
+        colors = torch.as_tensor(colors, dtype=torch.float32, device=self.device)
+        return dataclasses.replace(
+            self, face_colors=torch.broadcast_to(colors, (self.num_triangles, 3)).clone()
+        )
+
     def set_materials(self, *names: str) -> "Mesh":
         """Register material names; assign the single material to all faces if one."""
         mesh = dataclasses.replace(self, material_names=tuple(names))
@@ -181,11 +354,31 @@ class Mesh:
             self, face_materials=materials.expand(self.num_triangles).clone()
         )
 
+    def rotate(self, rotation_matrix) -> "Mesh":
+        """Rotate every vertex by a ``[3, 3]`` matrix."""
+        rotation_matrix = torch.as_tensor(rotation_matrix, dtype=self.vertices.dtype, device=self.device)
+        return dataclasses.replace(self, vertices=(rotation_matrix @ self.vertices.T).T)
+
+    def scale(self, scale_factor) -> "Mesh":
+        """Scale every vertex by a scalar factor."""
+        return dataclasses.replace(self, vertices=self.vertices * scale_factor)
+
     def translate(self, translation) -> "Mesh":
+        """Translate every vertex."""
         translation = torch.as_tensor(
             translation, dtype=self.vertices.dtype, device=self.device
         )
         return dataclasses.replace(self, vertices=self.vertices + translation)
+
+    def center(self) -> tuple["Mesh", torch.Tensor]:
+        """The mesh moved so that its bounding box is centred at the origin, and the translation applied.
+
+        >>> mesh, offset = Mesh.box(device="cpu").translate([1.0, 2.0, 3.0]).center()
+        >>> offset.tolist(), mesh.bounding_box.mean(dim=0).tolist()
+        ([-1.0, -2.0, -3.0], [0.0, 0.0, 0.0])
+        """
+        offset = self.bounding_box.mean(dim=0)
+        return self.translate(-offset), -offset
 
     # -- Constructors -----------------------------------------------------
 
@@ -201,18 +394,45 @@ class Mesh:
     def plane(
         cls,
         vertex_a,
+        vertex_b=None,
+        vertex_c=None,
         *,
-        normal,
+        normal=None,
         side_length: float = 1.0,
+        rotate=None,
         device: torch.device | str | None = None,
     ) -> "Mesh":
-        """Square plane (two triangles) centered at ``vertex_a`` with unit ``normal``."""
+        """Square plane (two triangles) centred at ``vertex_a``.
+
+        Its orientation comes from two more in-plane vertices
+        (``vertex_b``, ``vertex_c``) or from a unit ``normal``; ``rotate``
+        turns it by that angle (rad) about its normal. Quad-compatible.
+
+        >>> [x + 0.0 for x in Mesh.plane([0.0, 0, 0], [1.0, 0, 0], [0.0, 1, 0], device="cpu").normals[0].tolist()]
+        [0.0, 0.0, 1.0]
+        """
+        if (vertex_b is None) != (vertex_c is None):
+            msg = "You must specify either of both of 'vertex_b' and 'vertex_c', or none."
+            raise ValueError(msg)
+        if (vertex_b is None) == (normal is None):
+            msg = (
+                "A plane is defined either by two extra vertices or by a"
+                " normal; pass ('vertex_b', 'vertex_c') or 'normal', not both."
+            )
+            raise ValueError(msg)
         device = _on_card(device)
-        vertex_a = torch.as_tensor(vertex_a, dtype=torch.float32, device=device)
-        normal = torch.as_tensor(normal, dtype=torch.float32, device=device)
+        as_f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)  # noqa: E731
+        vertex_a = as_f32(vertex_a)
+        if vertex_b is not None:
+            normal = normalize(_cross(as_f32(vertex_b) - vertex_a, as_f32(vertex_c) - vertex_a))[0]
+        else:
+            normal = as_f32(normal)
         u, v = orthogonal_basis(normal)
         s = 0.5 * side_length
-        vertices = s * torch.stack((u + v, v - u, -u - v, u - v)) + vertex_a
+        vertices = s * torch.stack((u + v, v - u, -u - v, u - v))
+        if rotate is not None:
+            vertices = (rotation_matrix_along_axis(as_f32(rotate), normal) @ vertices.T).T
+        vertices = vertices + vertex_a
         triangles = torch.tensor([[0, 1, 2], [0, 2, 3]], device=device)
         return cls(vertices=vertices, triangles=triangles, assume_unique_vertices=True)
 
@@ -270,6 +490,20 @@ class Mesh:
             assume_unique_vertices=True,
         )
 
+    @classmethod
+    def load_obj(cls, file: str | PathLike[str], *, device: torch.device | str | None = None) -> "Mesh":
+        """Load a Wavefront .obj file (vertices, triangles, MTL colours and materials); see :func:`differt_tpu_torch.io.load_obj`."""
+        from ..io import load_obj
+
+        return load_obj(file, device=device)
+
+    @classmethod
+    def load_ply(cls, file: str | PathLike[str], *, device: torch.device | str | None = None) -> "Mesh":
+        """Load a Stanford .ply file (ascii or binary, either endianness); see :func:`differt_tpu_torch.io.load_ply`."""
+        from ..io import load_ply
+
+        return load_ply(file, device=device)
+
     # -- Structure ops ----------------------------------------------------
 
     def __getitem__(self, key) -> "Mesh":
@@ -282,6 +516,7 @@ class Mesh:
         return Mesh(
             vertices=self.vertices,
             triangles=self.triangles[key],
+            face_colors=None if self.face_colors is None else self.face_colors[key],
             face_materials=None if self.face_materials is None else self.face_materials[key],
             material_names=self.material_names,
             assume_unique_vertices=self.assume_unique_vertices,
@@ -350,8 +585,8 @@ class Mesh:
         """Concatenate two meshes (vertices re-indexed, materials merged by name).
 
         Optional fields present on one side only get defaults on the other
-        (-1 materials, all-active masks); a bound-less non-empty side counts
-        as one object.
+        (black colours, -1 materials, all-active masks); a bound-less
+        non-empty side counts as one object.
         """
         num_self, num_other = self.num_triangles, other.num_triangles
         device = self.device
@@ -359,6 +594,14 @@ class Mesh:
         triangles = torch.cat(
             (self.triangles, other.triangles + self.vertices.shape[0])
         )
+
+        face_colors = None
+        if self.face_colors is not None or other.face_colors is not None:
+            black = lambda n: torch.zeros((n, 3), device=device)  # noqa: E731
+            face_colors = torch.cat((
+                self.face_colors if self.face_colors is not None else black(num_self),
+                other.face_colors if other.face_colors is not None else black(num_other),
+            ))
 
         material_names = list(self.material_names)
         remap = []
@@ -408,6 +651,7 @@ class Mesh:
         return Mesh(
             vertices=vertices,
             triangles=triangles,
+            face_colors=face_colors,
             face_materials=face_materials,
             material_names=tuple(material_names),
             object_bounds=object_bounds,
@@ -418,6 +662,119 @@ class Mesh:
 
     def __add__(self, other: "Mesh") -> "Mesh":
         return self.append(other)
+
+    # -- Sampling, clipping and vertex edits ------------------------------
+
+    def sample(
+        self,
+        size: int,
+        replace: bool = False,
+        preserve: bool = False,
+        *,
+        by_masking: bool = False,
+        generator: torch.Generator | None = None,
+    ) -> "Mesh":
+        """``size`` triangles drawn at random (from ``generator``), by index or, with ``by_masking``, as a mask.
+
+        ``by_masking`` keeps every triangle and sets :attr:`mask` (fixed
+        shapes); with ``preserve`` the draw is also limited to the active
+        triangles of the current mask.
+
+        >>> box = Mesh.box(device="cpu")
+        >>> box.sample(4, generator=torch.Generator().manual_seed(0)).num_triangles
+        4
+        """
+        num = self.num_triangles
+        device = self.device if generator is None else generator.device
+        if by_masking:
+            if replace:
+                idx = torch.randint(0, num, (size,), generator=generator, device=device).to(self.device)
+                mask = torch.zeros(num, dtype=torch.bool, device=self.device)
+                mask[idx] = True
+            else:
+                scores = torch.rand(num, generator=generator, device=device).to(self.device)
+                threshold = torch.sort(scores, descending=True).values[size - 1] if size > 0 else torch.inf
+                mask = scores >= threshold
+            if preserve and self.mask is not None:
+                mask = mask & self.mask
+            return self.set_mask(mask)
+        if replace:
+            idx = torch.randint(0, num, (size,), generator=generator, device=device)
+        else:
+            if size > num:
+                msg = f"Cannot take {size} triangles of {num} without replacement."
+                raise ValueError(msg)
+            idx = torch.randperm(num, generator=generator, device=device)[:size]
+        return self[idx.to(self.device)]
+
+    def shuffle(self, *, generator: torch.Generator | None = None) -> "Mesh":
+        """The triangles in a random order (from ``generator``); object bounds dropped."""
+        device = self.device if generator is None else generator.device
+        return self[torch.randperm(self.num_triangles, generator=generator, device=device).to(self.device)]
+
+    def clip(self, x_min=None, x_max=None, y_min=None, y_max=None, z_min=None, z_max=None) -> "Mesh":
+        """Mask out the triangles whose centroid lies outside the given limits (and the already inactive ones).
+
+        >>> Mesh.box(device="cpu").clip(z_max=-0.4).num_active_triangles.item()
+        2
+        """
+        centers = self.triangle_vertices.mean(dim=-2)
+        keep = torch.ones(self.num_triangles, dtype=torch.bool, device=self.device)
+        for axis, (lo, hi) in enumerate(((x_min, x_max), (y_min, y_max), (z_min, z_max))):
+            if lo is not None:
+                keep &= centers[:, axis] >= lo
+            if hi is not None:
+                keep &= centers[:, axis] <= hi
+        if self.mask is not None:
+            keep &= self.mask
+        return self.set_mask(keep)
+
+    def _inside(self, bounding_box) -> torch.Tensor:
+        """``[num_triangles, 3]`` bool: which corners lie inside the ``[2, 3]`` box."""
+        box = torch.as_tensor(bounding_box, dtype=self.vertices.dtype, device=self.device)
+        tv = self.triangle_vertices
+        return ((tv >= box[0]) & (tv <= box[1])).all(dim=-1)
+
+    def keep_all_within(self, bounding_box) -> "Mesh":
+        """Mask keeping the (active) triangles whose every corner lies inside the ``[2, 3]`` box."""
+        keep = self._inside(bounding_box).all(dim=-1)
+        return self.set_mask(keep & self.mask if self.mask is not None else keep)
+
+    def keep_any_within(self, bounding_box) -> "Mesh":
+        """Mask keeping the (active) triangles with at least one corner inside the ``[2, 3]`` box."""
+        keep = self._inside(bounding_box).any(dim=-1)
+        return self.set_mask(keep & self.mask if self.mask is not None else keep)
+
+    def add_ground(self, side_length=None, *, elevation=0.0) -> "Mesh":
+        """Append a horizontal square ground plane under the mesh's centre, at ``elevation``.
+
+        Its side is twice the larger horizontal extent unless given.
+
+        >>> Mesh.box(device="cpu").add_ground().num_triangles
+        12
+        """
+        bbox = self.bounding_box
+        center = bbox.mean(dim=0)
+        if side_length is None:
+            side_length = 2.0 * (bbox[1, :2] - bbox[0, :2]).max()
+        up = torch.tensor([0.0, 0.0, 1.0], device=self.device)
+        origin = torch.stack((center[0], center[1], torch.zeros_like(center[0])))
+        ground = Mesh.plane(origin + up * elevation, normal=up, side_length=side_length, device=self.device)
+        return self.append(ground)
+
+    @property
+    def at(self) -> _VertexUpdates:
+        """Differentiable vertex edits of a triangle selection: ``mesh.at[index].add(delta)``, ...
+
+        Each vertex of the selection is edited once, however many of the
+        selected triangles share it (:class:`_VertexSelection`).
+
+        >>> box = Mesh.box(device="cpu")
+        >>> moved = box.at[0].add(torch.tensor([0.0, 0.0, 1.0]))
+        >>> int((moved.vertices != box.vertices).any(dim=-1).sum())
+        3
+        """
+        return _VertexUpdates(self)
 
     # -- Diffraction edges ------------------------------------------------
 

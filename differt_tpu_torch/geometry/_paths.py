@@ -1,15 +1,63 @@
-"""Traced and launched path containers (PyTorch port of ``differt_tpu.geometry._paths``, subset).
+"""Traced and launched path containers (PyTorch port of ``differt_tpu.geometry._paths``).
 
 Paths keep full, fixed batch shapes plus validity masks: invalid paths are
 masked, never dropped. A traced path's mask is boolean, or with the
 smoothed checks a float confidence that :attr:`TracedPaths.valid_mask`
 holds against a threshold.
+
+Row grouping (:func:`merge_cell_ids`, :meth:`TracedPaths.group_by_objects`,
+:meth:`TracedPaths.multipath_cells`, :meth:`TracedPaths.mask_duplicate_objects`)
+rests on :func:`_group_index`: each row's id is the index of the first row
+equal to it, the JAX package's numbering.
 """
 
 import dataclasses
-from collections.abc import Sequence
+from collections.abc import Callable, Sequence
 
 import torch
+
+
+def _group_index(rows: torch.Tensor) -> torch.Tensor:
+    """``[num_rows]`` int64: the index of the first row of ``[num_rows, n]`` equal to each row.
+
+    Equal rows share the value, so it doubles as a group id. One sort
+    (``torch.unique`` over rows) and a scatter-min of positions, where the
+    JAX package compares tiles of rows against all rows.
+
+    >>> _group_index(torch.tensor([[1, 2], [3, 4], [1, 2]])).tolist()
+    [0, 1, 0]
+    """
+    num_rows = rows.shape[0]
+    if num_rows == 0:
+        return torch.zeros((0,), dtype=torch.int64, device=rows.device)
+    if rows.dtype == torch.bool:
+        rows = rows.to(torch.uint8)
+    _, inverse = torch.unique(rows, dim=0, return_inverse=True)
+    first = torch.full((num_rows,), num_rows, dtype=torch.int64, device=rows.device)
+    first = first.scatter_reduce(0, inverse, torch.arange(num_rows, device=rows.device), "amin")
+    return first[inverse]
+
+
+def merge_cell_ids(cell_ids_a, cell_ids_b) -> torch.Tensor:
+    """Combine two cell-id tensors (broadcast together): two entries share an id iff they share both.
+
+    The ids are fresh group ids (each the flat index of its group's first
+    entry), unrelated to either input's numbering.
+
+    >>> merge_cell_ids(torch.tensor([0, 0, 1, 1]), torch.tensor([0, 1, 0, 0])).tolist()
+    [0, 1, 2, 2]
+    """
+    a, b = torch.broadcast_tensors(torch.as_tensor(cell_ids_a), torch.as_tensor(cell_ids_b))
+    pairs = torch.stack((a, b.to(a.device)), dim=-1)
+    return _group_index(pairs.reshape(-1, 2)).reshape(pairs.shape[:-1])
+
+
+def _batch_axis(axis: int, ndim: int) -> int:
+    resolved = axis + ndim if axis < 0 else axis
+    if not 0 <= resolved < ndim:
+        msg = f"Axis {axis} is out-of-bounds for a {ndim}-dimensional batch."
+        raise ValueError(msg)
+    return resolved
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,7 +72,7 @@ class TracedPaths:
     """``[*batch]`` bool validity mask, or float confidence held against :attr:`confidence_threshold`."""
     interaction_types: torch.Tensor
     """``[*batch, path_length - 2]`` per-bounce interaction types."""
-    confidence_threshold: float = 0.5
+    confidence_threshold: float | torch.Tensor = 0.5
     """Confidence from which a path with a float mask counts as valid."""
 
     @property
@@ -64,6 +112,67 @@ class TracedPaths:
         """Reshape the batch dimensions (``-1`` wildcards allowed)."""
         target = self.mask.reshape(*batch).shape
         return self._remap(lambda x, nd: x.reshape(*target, *x.shape[x.ndim - nd :]))
+
+    def mask_duplicate_objects(self, axis: int = -1) -> "TracedPaths":
+        """Mask the paths whose object sequence repeats an earlier one along the batch ``axis``.
+
+        The first of each sequence keeps its mask; the batch shape is kept.
+
+        >>> paths = TracedPaths(
+        ...     torch.zeros((3, 3, 3)), torch.tensor([[0, 1, 0], [0, 2, 0], [0, 1, 0]]),
+        ...     mask=torch.ones(3, dtype=torch.bool), interaction_types=torch.zeros((3, 1), dtype=torch.int32),
+        ... )
+        >>> paths.mask_duplicate_objects().mask.tolist()
+        [True, True, False]
+        """
+        resolved = _batch_axis(axis, self.objects.ndim - 1)
+        sequences = torch.movedim(self.objects, resolved, -2)
+        *lead, axis_len, path_len = sequences.shape
+        groups = sequences.reshape(-1, axis_len, path_len)
+        # One grouping for all: each row tagged with the index of its group.
+        tag = torch.arange(groups.shape[0], device=groups.device)[:, None, None].expand(-1, axis_len, 1)
+        first = _group_index(torch.cat((tag, groups), dim=-1).reshape(-1, path_len + 1))
+        keep = first == torch.arange(first.shape[0], device=first.device)
+        keep = torch.movedim(keep.reshape(*lead, axis_len), -1, resolved)
+        return dataclasses.replace(self, mask=self.mask * keep)
+
+    def multipath_cells(self, axis: int = -1) -> torch.Tensor:
+        """Group the batch entries that share the same pattern of valid paths along ``axis``.
+
+        The entries with the same set of valid candidates get the same cell
+        id: the multipath cells behind multipath lifetime maps.
+        """
+        patterns = torch.movedim(self.valid_mask, axis, -1)
+        *partial_batch, width = patterns.shape
+        return _group_index(patterns.reshape(-1, width)).reshape(partial_batch)
+
+    def group_by_objects(self) -> torch.Tensor:
+        """``[*batch]`` group ids: the paths with the same object sequence share one.
+
+        >>> paths = TracedPaths(
+        ...     torch.zeros((3, 3, 3)), torch.tensor([[0, 1, 0], [0, 2, 0], [0, 1, 0]]),
+        ...     mask=torch.ones(3, dtype=torch.bool), interaction_types=torch.zeros((3, 1), dtype=torch.int32),
+        ... )
+        >>> paths.group_by_objects().tolist()
+        [0, 1, 0]
+        """
+        *batch, path_length = self.objects.shape
+        return _group_index(self.objects.reshape(-1, path_length)).reshape(batch)
+
+    def reduce(self, fun: Callable[[torch.Tensor], torch.Tensor], axis: int | Sequence[int] | None = None) -> torch.Tensor:
+        """The masked sum of ``fun(vertices)`` (``[*batch]``) over the batch ``axis`` (all axes when None).
+
+        A float confidence weights each path (differentiably); a bool mask
+        selects with ``where``, so that invalid paths' NaN or inf drop out.
+        """
+        contributions = fun(self.vertices)
+        if self.mask.dtype == torch.bool:
+            contributions = torch.where(self.mask, contributions, torch.zeros_like(contributions))
+        else:
+            contributions = contributions * self.mask
+        if axis is None:
+            return contributions.sum()
+        return contributions.sum(dim=axis)
 
     def masked(self) -> "TracedPaths":
         """The valid paths only, their batch flattened (a mask of ones).

@@ -1,8 +1,9 @@
-"""Scene container (PyTorch port of ``differt_tpu.geometry._scene``, subset)."""
+"""Scene container (PyTorch port of ``differt_tpu.geometry._scene``)."""
 
 import dataclasses
 import math
 import warnings
+from os import PathLike
 
 import torch
 
@@ -46,14 +47,100 @@ class Scene:
     """The scene geometry."""
 
     @property
+    def num_transmitters(self) -> int:
+        return math.prod(self.transmitters.shape[:-1])
+
+    @property
     def num_receivers(self) -> int:
         return math.prod(self.receivers.shape[:-1])
+
+    def set_assume_quads(self, flag: bool = True) -> "Scene":
+        """:meth:`Mesh.set_assume_quads` on the scene's mesh."""
+        return dataclasses.replace(self, mesh=self.mesh.set_assume_quads(flag))
+
+    def with_transmitters_grid(
+        self, m: int = 50, n: int | None = 50, *, height: float = 1.5
+    ) -> "Scene":
+        """Place an ``n x m`` grid of transmitters over the scene footprint."""
+        return dataclasses.replace(self, transmitters=self._grid(m, n, height=height))
 
     def with_receivers_grid(
         self, m: int = 50, n: int | None = 50, *, height: float = 1.5
     ) -> "Scene":
         """Place an ``n x m`` grid of receivers over the scene footprint."""
         return dataclasses.replace(self, receivers=self._grid(m, n, height=height))
+
+    def rotate(self, rotation_matrix) -> "Scene":
+        """Rotate the transmitters, the receivers and the mesh by a ``[3, 3]`` matrix."""
+        rotation_matrix = torch.as_tensor(
+            rotation_matrix, dtype=self.mesh.vertices.dtype, device=self.mesh.device
+        )
+
+        def turn(points: torch.Tensor) -> torch.Tensor:
+            return (rotation_matrix @ points.reshape(-1, 3).T).T.reshape(points.shape)
+
+        return dataclasses.replace(
+            self,
+            transmitters=turn(self.transmitters),
+            receivers=turn(self.receivers),
+            mesh=self.mesh.rotate(rotation_matrix),
+        )
+
+    def scale(self, scale_factor) -> "Scene":
+        """Scale the transmitters, the receivers and the mesh."""
+        return dataclasses.replace(
+            self,
+            transmitters=self.transmitters * scale_factor,
+            receivers=self.receivers * scale_factor,
+            mesh=self.mesh.scale(scale_factor),
+        )
+
+    def translate(self, translation) -> "Scene":
+        """Translate the transmitters, the receivers and the mesh."""
+        translation = torch.as_tensor(
+            translation, dtype=self.mesh.vertices.dtype, device=self.mesh.device
+        )
+        return dataclasses.replace(
+            self,
+            transmitters=self.transmitters + translation,
+            receivers=self.receivers + translation,
+            mesh=self.mesh.translate(translation),
+        )
+
+    @classmethod
+    def load_xml(cls, file: str | PathLike[str], *, device: torch.device | str | None = None) -> "Scene":
+        """A scene of the mesh of a Sionna/Mitsuba XML file (:func:`differt_tpu_torch.io.load_scene_xml`), on ``device`` (the card when None)."""
+        from ..io import load_scene_xml
+
+        mesh = load_scene_xml(file, device=device)
+        empty = torch.empty((0, 3), device=mesh.device)
+        return cls(transmitters=empty, receivers=empty, mesh=mesh)
+
+    @classmethod
+    def from_mitsuba(cls, mi_scene, *, device: torch.device | str | None = None) -> "Scene":
+        """A scene of every shape of a loaded Mitsuba scene (needs the ``mitsuba`` package)."""
+        import mitsuba as mi
+        import numpy as np
+
+        mesh = Mesh.empty(device=device)
+        params = mi.traverse(mi_scene)
+        shapes = [k.removesuffix(".vertex_positions") for k in params.keys() if k.endswith(".vertex_positions")]
+        for shape in shapes:
+            mesh = mesh + Mesh(
+                vertices=torch.as_tensor(
+                    np.asarray(params[f"{shape}.vertex_positions"]).reshape(-1, 3), device=mesh.device
+                ),
+                triangles=torch.as_tensor(
+                    np.asarray(params[f"{shape}.faces"]).reshape(-1, 3).astype(np.int64), device=mesh.device
+                ),
+            )
+        empty = torch.empty((0, 3), device=mesh.device)
+        return cls(transmitters=empty, receivers=empty, mesh=mesh)
+
+    @classmethod
+    def from_sionna(cls, sionna_scene, *, device: torch.device | str | None = None) -> "Scene":
+        """A scene of a loaded Sionna RT scene (needs the ``sionna`` and ``mitsuba`` packages)."""
+        return cls.from_mitsuba(sionna_scene.mi_scene, device=device)
 
     def _grid(self, m: int, n: int | None, *, height: float) -> torch.Tensor:
         if n is None:
@@ -242,3 +329,15 @@ class Scene:
             grid_bounds=grid_bounds,
             grid_size=grid_size,
         )
+
+
+class TriangleScene(Scene):
+    """Deprecated alias of :class:`Scene`."""
+
+    def __init__(self, *args, **kwargs) -> None:
+        warnings.warn(
+            "TriangleScene was renamed to Scene; this alias will be removed.",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        super().__init__(*args, **kwargs)

@@ -64,6 +64,97 @@ def path_length(path: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(_dot(segments, segments)).sum(dim=-1)
 
 
+def rotation_matrix_along_x_axis(angle) -> torch.Tensor:
+    """``[3, 3]`` rotation by ``angle`` (rad) about the x axis.
+
+    >>> import math
+    >>> [round(x, 6) + 0.0 for x in (rotation_matrix_along_x_axis(math.pi / 2) @ torch.tensor([0.0, 1.0, 0.0])).tolist()]
+    [0.0, 0.0, 1.0]
+    """
+    c, s, one, zero = _trig(angle)
+    return torch.stack((
+        torch.stack((one, zero, zero)),
+        torch.stack((zero, c, -s)),
+        torch.stack((zero, s, c)),
+    ))
+
+
+def rotation_matrix_along_y_axis(angle) -> torch.Tensor:
+    """``[3, 3]`` rotation by ``angle`` (rad) about the y axis."""
+    c, s, one, zero = _trig(angle)
+    return torch.stack((
+        torch.stack((c, zero, s)),
+        torch.stack((zero, one, zero)),
+        torch.stack((-s, zero, c)),
+    ))
+
+
+def rotation_matrix_along_z_axis(angle) -> torch.Tensor:
+    """``[3, 3]`` rotation by ``angle`` (rad) about the z axis."""
+    c, s, one, zero = _trig(angle)
+    return torch.stack((
+        torch.stack((c, -s, zero)),
+        torch.stack((s, c, zero)),
+        torch.stack((zero, zero, one)),
+    ))
+
+
+def _trig(angle) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``cos``, ``sin``, one and zero of a float32 (or given floating) angle."""
+    angle = torch.as_tensor(angle)
+    if not angle.is_floating_point():
+        angle = angle.to(torch.float32)
+    c = torch.cos(angle)
+    return c, torch.sin(angle), torch.ones_like(c), torch.zeros_like(c)
+
+
+def rotation_matrix_along_axis(angle, axis) -> torch.Tensor:
+    """``[3, 3]`` rotation by ``angle`` (rad) about the unit vector ``axis`` (Rodrigues' formula).
+
+    >>> import math
+    >>> r = rotation_matrix_along_axis(math.pi / 2, torch.tensor([0.0, 0.0, 1.0]))
+    >>> [round(x, 6) + 0.0 for x in (r @ torch.tensor([1.0, 0.0, 0.0])).tolist()]
+    [0.0, 1.0, 0.0]
+    """
+    axis = torch.as_tensor(axis)
+    if not axis.is_floating_point():
+        axis = axis.to(torch.float32)
+    c, s, _, _ = _trig(torch.as_tensor(angle, device=axis.device))
+    zero = torch.zeros_like(axis[0])
+    cross = torch.stack((
+        torch.stack((zero, -axis[2], axis[1])),
+        torch.stack((axis[2], zero, -axis[0])),
+        torch.stack((-axis[1], axis[0], zero)),
+    ))
+    eye = torch.eye(3, dtype=axis.dtype, device=axis.device)
+    return c * eye + s * cross + (1.0 - c) * torch.outer(axis, axis)
+
+
+def min_distance_between_cells(cell_vertices: torch.Tensor, cell_ids: torch.Tensor, *, chunk: int = 1024) -> torch.Tensor:
+    """For every ``[*batch, 3]`` vertex, the least distance to a vertex of another cell (``inf`` if none).
+
+    O(n^2) work, done ``chunk`` vertices at a time so memory stays
+    O(chunk * n).
+
+    >>> v = torch.tensor([[0.0, 0, 0], [1.0, 0, 0], [3.0, 0, 0]])
+    >>> min_distance_between_cells(v, torch.tensor([0, 0, 1])).tolist()
+    [3.0, 2.0, 2.0]
+    """
+    cell_vertices = torch.as_tensor(cell_vertices)
+    cell_ids = torch.as_tensor(cell_ids, device=cell_vertices.device)
+    flat_v = cell_vertices.reshape(-1, 3)
+    flat_ids = cell_ids.reshape(-1)
+    out = []
+    for start in range(0, flat_v.shape[0], chunk):
+        d = flat_v[start : start + chunk, None, :] - flat_v[None, :, :]
+        dist = torch.sqrt(_dot(d, d))
+        other = flat_ids[start : start + chunk, None] != flat_ids[None, :]
+        out.append(torch.where(other, dist, torch.inf).amin(dim=-1))
+    if not out:
+        return torch.empty(cell_ids.shape, dtype=cell_vertices.dtype, device=cell_vertices.device)
+    return torch.cat(out).reshape(cell_ids.shape)
+
+
 def cartesian_to_spherical(xyz: torch.Tensor) -> torch.Tensor:
     """Cartesian to spherical ``(r, polar, azimuth)``.
 

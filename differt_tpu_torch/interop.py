@@ -5,7 +5,7 @@ state. A dict of numpy arrays (made, for instance, with ``np.asarray`` on
 the fields of a JAX ``Scene``) becomes the port's objects on a device, so
 both packages can trace the same geometry.
 
-Mesh keys: ``vertices``, ``triangles``, ``face_materials``,
+Mesh keys: ``vertices``, ``triangles``, ``face_colors``, ``face_materials``,
 ``material_names``, ``mask``, ``object_bounds``, ``assume_quads``,
 ``assume_unique_vertices``; the optional ones may be missing or None. Scene keys: ``transmitters``,
 ``receivers`` and ``mesh`` (a mesh dict). A placement problem (the inputs
@@ -38,6 +38,7 @@ def mesh_from_numpy(fields: dict, *, device: torch.device | str | None = None) -
     return Mesh(
         vertices=_tensor(fields["vertices"], torch.float32, device),
         triangles=_tensor(fields["triangles"], torch.int64, device),
+        face_colors=_tensor(fields.get("face_colors"), torch.float32, device),
         face_materials=_tensor(fields.get("face_materials"), torch.int64, device),
         material_names=tuple(str(n) for n in fields.get("material_names") or ()),
         object_bounds=_tensor(fields.get("object_bounds"), torch.int64, device),
@@ -67,6 +68,7 @@ def mesh_to_numpy(mesh: Mesh) -> dict:
     return {
         "vertices": as_np(mesh.vertices),
         "triangles": as_np(mesh.triangles),
+        "face_colors": as_np(mesh.face_colors),
         "face_materials": as_np(mesh.face_materials),
         "material_names": mesh.material_names,
         "mask": as_np(mesh.mask),

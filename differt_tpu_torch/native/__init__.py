@@ -1,7 +1,6 @@
-"""The filtered candidate DFS on the host, built with ``g++`` at first use and loaded via ctypes.
+"""The filtered candidate DFS and the OBJ parser on the host, built with ``g++`` at first use and loaded via ctypes.
 
-``_native.cpp`` (a copy of the DFS of the JAX package's native library)
-is compiled with ``g++ -O2`` into ``build/native/`` at the repository root,
+``_native.cpp`` (a copy of the JAX package's native library) is compiled with ``g++ -O2`` into ``build/native/`` at the repository root,
 the file name keyed on a hash of the source, the first time it is needed;
 nothing is built when the package is imported. :func:`filtered_path_candidates`
 enumerates the loop-free candidates whose first primitive the TX sees, whose
@@ -9,7 +8,10 @@ last the RX sees and whose every primitive is active, never visiting a
 pruned branch. Without a compiler, :func:`is_available` is False and
 :func:`filtered_path_candidates_chunked`, the plain fallback that decodes
 and filters the whole space a chunk at a time, gives the same rows (counted
-in :data:`FALLBACK_CALLS`).
+in :data:`FALLBACK_CALLS`). :func:`parse_obj_geometry` reads the geometry
+of a Wavefront OBJ file (counted in :data:`OBJ_CALLS`); without a compiler
+:func:`differt_tpu_torch.io.load_obj` takes its Python parser instead
+(counted in :data:`OBJ_FALLBACK_CALLS`).
 """
 
 import ctypes
@@ -32,6 +34,10 @@ CALLS = 0
 """Calls of :func:`filtered_path_candidates` (the DFS) in this process."""
 FALLBACK_CALLS = 0
 """Calls of :func:`filtered_path_candidates_chunked` (the plain fallback) in this process."""
+OBJ_CALLS = 0
+"""Calls of :func:`parse_obj_geometry` (the native OBJ parser) in this process."""
+OBJ_FALLBACK_CALLS = 0
+"""OBJ files read by the Python parser of :mod:`differt_tpu_torch.io` in this process."""
 
 
 def library_path() -> Path:
@@ -72,18 +78,26 @@ def load() -> ctypes.CDLL | None:
             _LOAD_FAILED = True
             return None
         u8p = ctypes.POINTER(ctypes.c_uint8)
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        i64p = ctypes.POINTER(ctypes.c_int64)
         lib.count_filtered_paths.restype = ctypes.c_int64
         lib.count_filtered_paths.argtypes = [ctypes.c_int, ctypes.c_int, u8p, u8p, u8p]
         lib.fill_filtered_paths.restype = ctypes.c_int64
         lib.fill_filtered_paths.argtypes = [
-            ctypes.c_int, ctypes.c_int, u8p, u8p, u8p, ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
+            ctypes.c_int, ctypes.c_int, u8p, u8p, u8p, i32p, ctypes.c_int64,
+        ]
+        lib.obj_counts.restype = ctypes.c_int
+        lib.obj_counts.argtypes = [ctypes.c_char_p, i64p, i64p]
+        lib.obj_parse.restype = ctypes.c_int
+        lib.obj_parse.argtypes = [
+            ctypes.c_char_p, ctypes.POINTER(ctypes.c_float), i32p, i32p, ctypes.c_int64, ctypes.c_int64,
         ]
         _LIB = lib
     return _LIB
 
 
 def is_available() -> bool:
-    """Whether the DFS library could be built and loaded."""
+    """Whether the native library could be built and loaded."""
     return load() is not None
 
 
@@ -125,7 +139,7 @@ def filtered_path_candidates(
     global CALLS
     lib = load()
     if lib is None:
-        msg = "The native DFS library is unavailable (no g++?)."
+        msg = "The native library is unavailable (no g++?)."
         raise RuntimeError(msg)
     CALLS += 1
     keep = [_u8(m) for m in (from_adjacency, to_adjacency, node_mask)]
@@ -183,3 +197,39 @@ def filtered_path_candidates_chunked(
     return generate_filtered_path_candidates(
         num_nodes, order, keep, chunk_size=chunk_size, device=device
     )
+
+
+def parse_obj_geometry(path: str | os.PathLike) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The geometry of a Wavefront OBJ file: ``(vertices, triangles, face_sections)`` numpy arrays.
+
+    ``vertices`` ``[V, 3]`` float32 and ``triangles`` ``[T, 3]`` int32 (faces
+    fan-triangulated, negative indices resolved); ``face_sections[i]`` is the
+    0-based index of the ``usemtl`` statement active for triangle ``i`` (-1
+    before the first). Counted in :data:`OBJ_CALLS`.
+    """
+    global OBJ_CALLS
+    lib = load()
+    if lib is None:
+        msg = "The native library is unavailable (no g++?)."
+        raise RuntimeError(msg)
+    OBJ_CALLS += 1
+    encoded = os.fspath(path).encode()
+    num_vertices, num_triangles = ctypes.c_int64(), ctypes.c_int64()
+    if lib.obj_counts(encoded, ctypes.byref(num_vertices), ctypes.byref(num_triangles)):
+        msg = f"Failed to read OBJ file: {path!r}"
+        raise OSError(msg)
+    vertices = np.empty((num_vertices.value, 3), dtype=np.float32)
+    triangles = np.empty((num_triangles.value, 3), dtype=np.int32)
+    sections = np.empty((num_triangles.value,), dtype=np.int32)
+    status = lib.obj_parse(
+        encoded,
+        vertices.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        triangles.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        sections.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        num_vertices.value,
+        num_triangles.value,
+    )
+    if status:
+        msg = f"Failed to parse OBJ file: {path!r} (status {status})"
+        raise OSError(msg)
+    return vertices, triangles, sections

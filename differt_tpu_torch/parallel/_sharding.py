@@ -232,7 +232,7 @@ def streamed_placement_loss(
     megakernel: bool | None = None,
     batch_size: int | None = 512,
     return_db_map: bool = False,
-    smoothing_factor: float | None = None,
+    smoothing_factor: float | torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The loss of :func:`streamed_placement_step` at ``tx``, with no gradient pass.
 
@@ -275,7 +275,7 @@ def streamed_placement_step(
     eta_learning_rate: float = 1e-2,
     megakernel: bool | None = None,
     batch_size: int | None = 512,
-    smoothing_factor: float | None = None,
+    smoothing_factor: float | torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One TX-placement and permittivity gradient step, streamed over the grid.
 

@@ -86,7 +86,7 @@ def consecutive_vertices_are_on_same_side_of_mirror(
     mirror_vertices: torch.Tensor,
     mirror_normals: torch.Tensor,
     *,
-    smoothing_factor: float | None = None,
+    smoothing_factor: float | torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Whether the vertices around each mirror lie on the same side of it.
 

@@ -106,7 +106,7 @@ def ray_intersect_any_triangle(
     *,
     hit_tol: float | None = None,
     epsilon: float | None = None,
-    smoothing_factor: float | None = None,
+    smoothing_factor: float | torch.Tensor | None = None,
     batch_size: int | None = 512,
 ) -> torch.Tensor:
     """Whether each ray hits any (active) triangle before ``t = 1 - hit_tol``.

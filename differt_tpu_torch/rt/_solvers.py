@@ -75,8 +75,8 @@ def trace_path_candidates(
     epsilon: float | None = None,
     hit_tol: float | None = None,
     min_len: float | None = None,
-    smoothing_factor: float | None = None,
-    confidence_threshold: float = 0.5,
+    smoothing_factor: float | torch.Tensor | None = None,
+    confidence_threshold: float | torch.Tensor = 0.5,
     batch_size: int | None = 512,
     megakernel: bool | None = None,
 ) -> TracedPaths:
@@ -309,7 +309,7 @@ def _geometric_checks(
     *,
     epsilon: float | None,
     min_len: float,
-    smoothing_factor: float | None = None,
+    smoothing_factor: float | torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, tuple[torch.Tensor, ...]]:
     """The image method and checks 1, 2, 4 and 5, hard or smoothed.
 
@@ -382,7 +382,7 @@ def _assemble_traced_paths(
     num_rx: int,
     num_candidates: int,
     order: int,
-    confidence_threshold: float = 0.5,
+    confidence_threshold: float | torch.Tensor = 0.5,
 ) -> TracedPaths:
     """Attach object indices and interaction types to traced geometry."""
     device = path_candidates.device
@@ -501,9 +501,9 @@ class _TracerOptions(AbstractPathTracer):
     """Hit-distance tolerance when testing path segments for blockage."""
     min_len: float | None = None
     """Minimal (squared) segment length for a valid path."""
-    smoothing_factor: float | None = None
+    smoothing_factor: float | torch.Tensor | None = None
     """Slope of the sigmoids that replace the hard checks (None: hard checks)."""
-    confidence_threshold: float = 0.5
+    confidence_threshold: float | torch.Tensor = 0.5
     """Confidence from which a path with a smoothed mask counts as valid."""
     batch_size: int | None = 512
     """Triangle tile of the smoothed blockage sum."""

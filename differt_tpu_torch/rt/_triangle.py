@@ -14,7 +14,7 @@ def ray_intersect_triangle(
     triangle_vertices: torch.Tensor,
     *,
     epsilon: float | None = None,
-    smoothing_factor: float | None = None,
+    smoothing_factor: float | torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Möller–Trumbore test, batched over leading dimensions; returns ``(t, hit)``.
 

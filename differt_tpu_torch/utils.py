@@ -8,6 +8,29 @@ port's arithmetic runs in the same order as the reference's.
 import torch
 
 
+def sample_points_in_bounding_box(
+    bounding_box: torch.Tensor,
+    shape: tuple[int, ...] = (),
+    *,
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """``[*shape, 3]`` points drawn uniformly inside a ``[2, 3]`` (min, max) box, on the box's device.
+
+    The draws come from ``generator`` (on its own device; the default
+    generator of the box's device when None).
+
+    >>> box = torch.tensor([[0.0, 0.0, 0.0], [1.0, 2.0, 3.0]])
+    >>> p = sample_points_in_bounding_box(box, (100,), generator=torch.Generator().manual_seed(0))
+    >>> p.shape, bool(((p >= box[0]) & (p <= box[1])).all())
+    (torch.Size([100, 3]), True)
+    """
+    bounding_box = torch.as_tensor(bounding_box)
+    lo, hi = bounding_box[0], bounding_box[1]
+    device = bounding_box.device if generator is None else generator.device
+    u = torch.rand((*shape, 3), generator=generator, dtype=lo.dtype, device=device).to(lo.device)
+    return lo + u * (hi - lo)
+
+
 def safe_divide(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
     """Elementwise division that returns 0 where the denominator is 0.
 

@@ -698,3 +698,49 @@ def test_mixed_map_on_the_card_against_the_cpu(torch_backend) -> None:
     both = mask & cpu_paths.mask
     lengths = [(x[..., 1:, :] - x[..., :-1, :]).double().norm(dim=-1).sum(-1)[both] for x in (v, cpu_v)]
     assert float((lengths[0] - lengths[1]).abs().max() / lengths[1].max()) <= 1e-6
+
+
+def _loaded_city(device, tmp_path) -> Scene:
+    """urban_scene(4, 4) written as a Sionna scene and loaded back on the card, with the TX at 40 m and 8 street receivers."""
+    from differt_tpu_torch import io
+
+    path = io.export_scene_xml(scenes.urban_scene(4, 4, device=device).mesh, tmp_path / "city")
+    loaded = Scene.load_xml(path, device=device)
+    rx = torch.tensor([[x, y, 1.5] for x in (-50.0, 0.0, 50.0, 100.0) for y in (-50.0, 0.0)], device=device)
+    return dataclasses.replace(loaded, transmitters=torch.tensor([[0.0, 0.0, 40.0]], device=device), receivers=rx)
+
+
+def test_loaded_city_builds_its_bvh_once(tmp_path) -> None:
+    device = cuda_or_skip()
+    scene = _loaded_city(device, tmp_path)
+    assert scene.mesh.device.type == "cuda" and scene.mesh.num_triangles == 578
+    counts = (_bvh.BUILDS, _rt.LAUNCHES, _rt.REFERENCE_CALLS, _trace.LAUNCHES, _trace.REFERENCE_CALLS)
+    paths = [scene.trace_paths(order=order) for order in (0, 1, 2)]
+    torch.cuda.synchronize()
+    now = (_bvh.BUILDS, _rt.LAUNCHES, _rt.REFERENCE_CALLS, _trace.LAUNCHES, _trace.REFERENCE_CALLS)
+    assert tuple(b - a for a, b in zip(counts, now)) == (1, 1, 0, 2, 0)
+    assert all(bool(p.mask.any()) for p in paths)
+
+
+def test_deepmimo_export_on_the_card_equals_the_plain_run(tmp_path, torch_backend) -> None:
+    from differt_tpu_torch.plugins import deepmimo
+
+    device = cuda_or_skip()
+    scene = _loaded_city(device, tmp_path)
+
+    def export():
+        fresh = dataclasses.replace(scene, mesh=dataclasses.replace(scene.mesh))
+        paths = [fresh.trace_paths(order=order) for order in (0, 1, 2)]
+        return deepmimo.export(paths=paths, scene=fresh, frequency=2.4e9, include_primitives=True)
+
+    got = export()
+    torch_backend()
+    want = export()
+    mask = want.mask
+    assert torch.equal(got.mask, mask) and int(mask.sum()) > 8
+    assert torch.equal(got.inter, want.inter) and torch.equal(got.primitives, want.primitives)
+    assert float((got.power[mask] - want.power[mask]).abs().max()) <= 0.01
+    turn = torch.deg2rad(got.phase[mask].double() - want.phase[mask].double())
+    assert float(torch.rad2deg(torch.abs(torch.polar(torch.ones_like(turn), turn) - 1.0)).max()) <= 0.01
+    torch.testing.assert_close(got.delay[mask], want.delay[mask], rtol=1e-6, atol=0.0)
+    assert bool(torch.isfinite(got.power[mask]).all())

@@ -54,6 +54,19 @@ for smoothing_factor in (None, 50.0):
     assert bool(torch.isfinite(loss)) and bool((tx != tx0).any()) and bool(torch.isfinite(tx).all())
 tx, eta, loss = placement_training_step(scene, 2.4e9, order=1, tx=tx0, **materials)
 assert bool(torch.isfinite(loss)) and bool((tx != tx0).any()) and bool((eta != 5.24).all())
+import tempfile
+from pathlib import Path
+from differt_tpu_torch import io
+from differt_tpu_torch.plugins import deepmimo
+with tempfile.TemporaryDirectory() as folder:
+    obj = Path(folder) / "tri.obj"
+    obj.write_text("v 0 0 0\nv 1 0 0\nv 0 1 0\nv 1 1 0\nf 1 2 4 3\n")
+    assert io.load_obj(obj, device="cpu").num_triangles == 2
+    loaded = Scene.load_xml(io.export_scene_xml(scene.mesh, folder), device="cpu")
+assert torch.equal(loaded.mesh.triangle_vertices, scene.mesh.triangle_vertices)
+loaded = Scene(transmitters=scene.transmitters, receivers=scene.receivers, mesh=loaded.mesh)
+channels = deepmimo.export(paths=[loaded.trace_paths(order=o) for o in (0, 1)], scene=loaded, frequency=2.4e9)
+assert channels.power.shape == (1, 64, 1 + loaded.mesh.num_triangles) and bool(torch.isfinite(channels.power[channels.mask]).all())
 assert not any(name == "jax" or name.startswith(("jax.", "differt_tpu.")) for name in sys.modules if sys.modules[name] is not None)
 print("ok")
 """

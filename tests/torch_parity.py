@@ -49,6 +49,7 @@ def jax_scene_fields(scene) -> dict:
         "mesh": {
             "vertices": _np(mesh.vertices),
             "triangles": _np(mesh.triangles),
+            "face_colors": _np(mesh.face_colors),
             "face_materials": _np(mesh.face_materials),
             "material_names": mesh.material_names,
             "mask": _np(mesh.mask),
