@@ -61,6 +61,12 @@ version, and drives three paths, each counted from zero:
   and 16.8 M paths: one any-hit and two fused-trace launches) and exported
   with ``deepmimo.export``; held against the plain versions on 8
   receivers and against ``coverage.complex_amplitudes`` at order 1;
+- the device mesh (phase 21): ``parallel.sharded_trace_paths``,
+  ``sharded_power_map``, ``training_step`` and ``placement_training_step``
+  on the coverage city with 127 street receivers, and
+  ``streamed_placement_step`` at phase 10's width on a 256 x 256 grid, on a
+  one-rank NCCL mesh (bit for bit the single device's results) and on two
+  gloo ranks spawned on the one card (within float32 reorderings);
 
 and checks that each path call went through its kernels, never through
 their plain versions, and built its mesh's BVH once. Then it profiles
@@ -73,6 +79,7 @@ script fails at once.
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1863,22 +1870,19 @@ def knife_fd_check(device, materials: dict) -> tuple[float, float, float]:
     return slope, fd, abs(slope - fd) / abs(fd)
 
 
-def cpu_copy(scene):
-    """The scene with every tensor on the CPU."""
-    mesh = scene.mesh
-    return dataclasses.replace(
-        scene,
-        transmitters=scene.transmitters.cpu(),
-        receivers=scene.receivers.cpu(),
-        mesh=dataclasses.replace(
-            mesh,
-            **{
-                f.name: getattr(mesh, f.name).cpu()
-                for f in dataclasses.fields(mesh)
-                if f.init and isinstance(getattr(mesh, f.name), torch.Tensor)
-            },
-        ),
-    )
+def moved(tree, device):
+    """``tree`` (tensors, dataclasses, lists, tuples, dicts) with every tensor on ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(
+            tree, **{f.name: moved(getattr(tree, f.name), device) for f in dataclasses.fields(tree) if f.init}
+        )
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(moved(x, device) for x in tree)
+    if isinstance(tree, dict):
+        return {k: moved(v, device) for k, v in tree.items()}
+    return tree
 
 
 def anyhit_row(label: str, o, d, th, mesh, counts: dict, plain: dict, on_path_ms: float) -> dict:
@@ -2048,7 +2052,7 @@ def run_mixed(device, kernels: dict, materials: dict) -> None:
     # 8 receivers: the card's mixed paths against the port's CPU run, on the
     # candidates valid for one of them and every 64th other one.
     rx8 = rx[:: num_rx // MIXED_CHECKED_RX]
-    cpu_dedup = cpu_copy(city).mesh.dedup_vertices()
+    cpu_dedup = moved(city, "cpu").mesh.dedup_vertices()
     cpu_edges = cpu_dedup._diffraction_edges_info()[0]
     vs_cpu, plain_rows = {}, {}
     trace_kw = {"epsilon": None, "hit_tol": None, "min_len": None, "angle_tol": 1e-2, "steps": 20}
@@ -2497,6 +2501,226 @@ def run_ingest(city, kernels: dict, order2_candidates: torch.Tensor) -> None:
     )
 
 
+# -- The device mesh (phase 21) ---------------------------------------------------
+
+MESH_RX = 127  # street_receivers less the last: two ranks pad one
+MESH_GRID = 256  # phase 10's width at a quarter of its 512 x 512 grid
+MESH_RANKS = 2
+
+
+def mesh_inputs(city, device) -> dict:
+    """Phase 21's inputs: the coverage city with 127 street receivers, and phase 10's step at 256 x 256."""
+    scene = dataclasses.replace(city, receivers=city.receivers.reshape(-1, 3)[:MESH_RX].contiguous())
+    placement = placement_scene(device, MESH_GRID)
+    return {
+        "scene": scene,
+        "materials": {"eta_r": torch.tensor([5.24], device=device), "conductivity": torch.tensor([0.1], device=device)},
+        "target": torch.full((1, MESH_RX), -100.0, device=device),
+        "placement": placement,
+        "candidates": placement_candidates(placement),
+    }
+
+
+def mesh_calls(inputs: dict, mesh) -> dict:
+    """Every ``parallel`` entry point of phase 21 on ``mesh`` (None: one device), each timed by
+    ``profiling.timeit`` (one run) with every count set to 0 just before; results on the CPU."""
+    from differt_tpu_torch import coverage, parallel, profiling
+    from differt_tpu_torch.geometry import generate_path_candidates
+    from differt_tpu_torch.rt import trace_path_candidates
+
+    scene, materials, target = inputs["scene"], inputs["materials"], inputs["target"]
+    placement = inputs["placement"]
+    kw = {**placement_kwargs(placement, inputs["candidates"]), "tx_learning_rate": 1.0, "eta_learning_rate": 1.0}
+    tx = scene.transmitters.reshape(-1, 3)
+
+    def trace():
+        if mesh is not None:
+            return parallel.sharded_trace_paths(scene, 1, mesh)
+        cand = generate_path_candidates(scene.mesh.num_primitives, 1, device=tx.device)
+        return trace_path_candidates(scene.mesh, tx, scene.receivers.reshape(-1, 3), cand)
+
+    def power_map():
+        if mesh is not None:
+            return parallel.sharded_power_map(scene, FREQUENCY, mesh, order=1)
+        return coverage.power_map(scene, FREQUENCY, order=1)
+
+    calls = {
+        "trace": lambda: (lambda p: (p.vertices, p.mask))(trace()),
+        "power_map": power_map,
+        "training_step": lambda: parallel.training_step(
+            scene, FREQUENCY, mesh, order=1, target_power=target, learning_rate=1.0, **materials
+        ),
+        "placement_training_step": lambda: parallel.placement_training_step(
+            scene, FREQUENCY, mesh, order=1, tx=tx, tx_learning_rate=1.0, eta_learning_rate=1.0, **materials
+        ),
+        "streamed_placement_step": lambda: parallel.streamed_placement_step(placement, FREQUENCY, mesh, **kw),
+    }
+    named = counters()
+    out, walls, counts = {}, {}, {}
+    for name, fn in calls.items():
+        torch.cuda.synchronize()
+        for module, attr in named.values():
+            setattr(module, attr, 0)
+        result = []
+        walls[name] = profiling.timeit(lambda fn=fn: result.append(fn()) or result[-1], repeats=1, warmup=0)["min"]
+        counts[name] = {k: getattr(module, attr) for k, (module, attr) in named.items()}
+        out[name] = moved(result[-1], "cpu")
+    return {"out": out, "walls": walls, "counts": counts}
+
+
+def mesh_rank(rank: int, port: int, folder: str) -> None:
+    """Phase 21b: one gloo rank of two on the one card; saves its results to ``folder``."""
+    import torch.distributed as dist
+
+    from differt_tpu_torch import parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=MESH_RANKS, rank=rank)
+    mesh = parallel.make_device_mesh(device=device)
+    inputs = moved(torch.load(f"{folder}/inputs.pt", weights_only=False), device)
+    mesh_calls(inputs, mesh)  # warm: the complex ops' backward compile at first use
+    torch.save(mesh_calls(inputs, mesh), f"{folder}/rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def bits_differ(a: torch.Tensor, b: torch.Tensor) -> int:
+    return int((a != b).sum()) if a.dtype == torch.bool else int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+
+def run_mesh(city, device, smi: str) -> None:
+    """Phase 21: the device-mesh forms of ``parallel`` on the coverage city and phase 10's step.
+
+    21a: ``make_device_mesh(1)`` with no group, a one-rank NCCL group on the
+    card; every call equals its ``mesh=None`` counterpart bit for bit. 21b:
+    two gloo ranks spawned on the one card; masks equal to 21a's, maps and
+    vertices within ``rtol 1e-6``, losses ``1e-5``, gradients ``1e-4``, both
+    ranks' results identical. ``trace.cu`` launches on every call, and no
+    plain version runs.
+    """
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from differt_tpu_torch import parallel, profiling
+
+    phase_start = time.perf_counter()
+    inputs = mesh_inputs(city, device)
+    single = mesh_calls(inputs, None)  # warm
+    single = mesh_calls(inputs, None)
+
+    # 21a: NCCL, a world of one.
+    if dist.is_initialized():
+        msg = "phase 21a needs no process group before it"
+        raise AssertionError(msg)
+    mesh = parallel.make_device_mesh(1)
+    if (dist.get_backend(), mesh.size, mesh.device) != ("nccl", 1, device):
+        msg = f"make_device_mesh(1) gave {dist.get_backend()}, {mesh}"
+        raise AssertionError(msg)
+    one = mesh_calls(inputs, mesh)
+    with tempfile.TemporaryDirectory() as folder:
+        with profiling.trace(folder), profiling.annotate("sharded_power_map"):
+            parallel.sharded_power_map(inputs["scene"], FREQUENCY, mesh, order=1)
+        traces = [f for f in os.listdir(folder) if f.endswith(".json")]
+        trace_bytes = sum(os.path.getsize(os.path.join(folder, f)) for f in traces)
+    dist.destroy_process_group()
+    if len(traces) != 1 or trace_bytes == 0:
+        msg = f"profiling.trace wrote {traces} ({trace_bytes} bytes)"
+        raise AssertionError(msg)
+    for name in single["out"]:
+        pairs = list(zip(flat(one["out"][name]), flat(single["out"][name]), strict=True))
+        if not all(torch.equal(a, b) for a, b in pairs):
+            differ = [bits_differ(a, b) for a, b in pairs]
+            msg = f"phase 21a {name}: the world of one differs from mesh=None in {differ} elements"
+            raise AssertionError(msg)
+        if one["counts"][name] != single["counts"][name]:
+            msg = f"phase 21a {name}: counts {one['counts'][name]} against mesh=None's {single['counts'][name]}"
+            raise AssertionError(msg)
+    for name, c in one["counts"].items():
+        if c["trace"] == 0 or any(c[k] for k in ("trace_plain", "anyhit_plain", "closest_plain")):
+            msg = f"phase 21 {name}: counts {c}"
+            raise AssertionError(msg)
+    print(
+        f"phase 21a NCCL world of one: every call equal to mesh=None bit for bit;"
+        f" walls_s {json.dumps({k: round(v, 4) for k, v in one['walls'].items()})},"
+        f" mesh=None {json.dumps({k: round(v, 4) for k, v in single['walls'].items()})};"
+        f" trace.cu launches {json.dumps({k: c['trace'] for k, c in one['counts'].items()})};"
+        f" profiling.trace {trace_bytes} bytes; card: {smi}",
+        flush=True,
+    )
+
+    # 21b: gloo, two ranks on the one card (NCCL refuses two ranks on one GPU).
+    with tempfile.TemporaryDirectory() as folder:
+        torch.save(moved(inputs, "cpu"), f"{folder}/inputs.pt")
+        start = time.perf_counter()
+        mp.spawn(mesh_rank, args=(free_port(), folder), nprocs=MESH_RANKS, join=True)
+        spawn_s = time.perf_counter() - start
+        ranks = [torch.load(f"{folder}/rank{r}.pt", weights_only=False) for r in range(MESH_RANKS)]
+    for name in single["out"]:
+        for a, b in zip(flat(ranks[0]["out"][name]), flat(ranks[1]["out"][name]), strict=True):
+            if not torch.equal(a, b):
+                msg = f"phase 21b {name}: the two ranks' results differ"
+                raise AssertionError(msg)
+    for rank in ranks:
+        for name, c in rank["counts"].items():
+            if c["trace"] == 0 or any(c[k] for k in ("trace_plain", "anyhit_plain", "closest_plain")):
+                msg = f"phase 21b {name}: counts {c}"
+                raise AssertionError(msg)
+    got, want = ranks[0]["out"], single["out"]
+    if not torch.equal(got["trace"][1], want["trace"][1]):
+        msg = "phase 21b: the sharded trace's mask differs from the single device's"
+        raise AssertionError(msg)
+    checks = {
+        "vertices": (got["trace"][0], want["trace"][0], 1e-6),
+        "power_map": (got["power_map"], want["power_map"], 1e-6),
+        "training_step_loss": (got["training_step"][1], want["training_step"][1], 1e-5),
+        "training_step_eta": (got["training_step"][0], want["training_step"][0], 1e-4),
+        "placement_loss": (got["placement_training_step"][2], want["placement_training_step"][2], 1e-5),
+        "placement_tx": (got["placement_training_step"][0], want["placement_training_step"][0], 1e-4),
+        "placement_eta": (got["placement_training_step"][1], want["placement_training_step"][1], 1e-4),
+        "streamed_loss": (got["streamed_placement_step"][2], want["streamed_placement_step"][2], 1e-5),
+        "streamed_tx": (got["streamed_placement_step"][0], want["streamed_placement_step"][0], 1e-4),
+        "streamed_eta": (got["streamed_placement_step"][1], want["streamed_placement_step"][1], 1e-4),
+    }
+    report = {}
+    for label, (a, b, rtol) in checks.items():
+        finite = torch.isfinite(b)
+        err = float(((a - b).abs() / b.abs().clamp_min(1e-30))[finite].max()) if finite.any() else 0.0
+        report[label] = {"max_rel": err, "bits_differ": bits_differ(a, b)}
+        if not torch.allclose(a, b, rtol=rtol, atol=0.0, equal_nan=True):
+            msg = f"phase 21b {label}: max relative error {err} over {rtol}"
+            raise AssertionError(msg)
+    print(
+        f"phase 21b gloo, {MESH_RANKS} ranks on one card: spawn_s={spawn_s:.2f}; both ranks equal;"
+        f" against mesh=None {json.dumps(report)}",
+        flush=True,
+    )
+    for r, rank in enumerate(ranks):
+        print(
+            f"phase 21b rank {r}: walls_s {json.dumps({k: round(v, 4) for k, v in rank['walls'].items()})};"
+            f" trace.cu launches {json.dumps({k: c['trace'] for k, c in rank['counts'].items()})};"
+            f" card: {smi}",
+            flush=True,
+        )
+    print(f"phase 21 wall_s={time.perf_counter() - phase_start:.1f}", flush=True)
+
+
+def flat(value) -> list[torch.Tensor]:
+    if isinstance(value, torch.Tensor):
+        return [value]
+    return [t for item in value for t in flat(item)]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         msg = "chip_smoke.py needs a CUDA device, and none is visible."
@@ -2808,6 +3032,7 @@ def main() -> None:
     run_mixed(device, kernels, materials)
     run_scattering(city, kernels, materials)
     run_ingest(city, kernels, main_candidates[: 32 * 4096])
+    run_mesh(city, device, smi)
 
     order2 = main_candidates[: 32 * 4096]
     profile("coverage order 2, 32 chunks", lambda: coverage_run(city, 2, order2), ("trace_kernel",))

@@ -23,7 +23,7 @@ traced paths export to DeepMIMO's per-path channels
 (``plugins.deepmimo.export``). The package never imports JAX.
 """
 
-from . import coverage, em, geometry, interop, io, native, ops, parallel, plugins, rt, scenes, utils
+from . import coverage, em, geometry, interop, io, native, ops, parallel, plugins, profiling, rt, scenes, utils
 
 __all__ = (
     "coverage",
@@ -35,6 +35,7 @@ __all__ = (
     "ops",
     "parallel",
     "plugins",
+    "profiling",
     "rt",
     "scenes",
     "utils",

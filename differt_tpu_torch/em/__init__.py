@@ -19,7 +19,7 @@ from ._fresnel import (
     slab_reflection_coefficients,
 )
 from ._interaction_type import InteractionType
-from ._material import Material, MaterialsDict, materials
+from ._material import ItuProperties, Material, MaterialsDict, materials
 from ._utd import F, L_i, diffraction_coefficients, fresnel
 from ._utils import (
     fspl,
@@ -40,6 +40,7 @@ __all__ = (
     "Dipole",
     "HWDipolePattern",
     "InteractionType",
+    "ItuProperties",
     "Material",
     "MaterialsDict",
     "RadiationPattern",

@@ -127,6 +127,27 @@ class Antenna(BaseAntenna, abc.ABC):
         """The largest value of :meth:`directivity`."""
         return self.directivity(num_points=num_points)[-1].max()
 
+    def plot_radiation_pattern(self, num_points: int = int(1e2), distance=1.0, num_wavelengths=None, **kwargs):
+        """Draw the radiated power, normalized to its peak, as a surface around the antenna.
+
+        The sphere of radius ``distance`` (or ``num_wavelengths``
+        wavelengths) is scaled along each direction by the normalized power,
+        which also colors it (:func:`differt_tpu_torch.plotting.draw_surface`).
+        """
+        from ..plotting import draw_surface
+
+        _, _, r = _sphere(self.center, num_points, _radius(self, distance, num_wavelengths))
+        p = torch.linalg.vector_norm(self.poynting_vector(r), dim=-1, keepdim=True)
+        gain = p / p.max()
+        r = self.center + (r - self.center) * gain
+        return draw_surface(x=r[..., 0], y=r[..., 1], z=r[..., 2], colors=gain[..., 0], **kwargs)
+
+
+def _radius(antenna: BaseAntenna, distance, num_wavelengths) -> torch.Tensor:
+    if num_wavelengths is not None:
+        return torch.as_tensor(num_wavelengths) * antenna.wavelength
+    return torch.as_tensor(distance)
+
 
 @dataclasses.dataclass(frozen=True, eq=False, init=False)
 class Dipole(Antenna):
@@ -274,6 +295,20 @@ class RadiationPattern(BaseAntenna, abc.ABC):
     def directive_gain(self, num_points: int = 100) -> torch.Tensor:
         """The largest value of :meth:`directivity`."""
         return self.directivity(num_points=num_points)[-1].max()
+
+    def plot_radiation_pattern(self, num_points: int = int(1e2), distance=1.0, num_wavelengths=None, **kwargs):
+        """Draw the pattern's power, normalized to its peak, as a surface (see :meth:`Antenna.plot_radiation_pattern`).
+
+        As in the JAX package, the points are scaled about the origin, not the center.
+        """
+        from ..plotting import draw_surface
+
+        _, _, r = _sphere(self.center, num_points, _radius(self, distance, num_wavelengths))
+        s, p = self.polarization_vectors(r)
+        power = (s * s).sum(dim=-1, keepdim=True) + (p * p).sum(dim=-1, keepdim=True)
+        gain = power / power.max()
+        r = r * gain
+        return draw_surface(x=r[..., 0], y=r[..., 1], z=r[..., 2], colors=gain[..., 0], **kwargs)
 
 
 def _dipole_frame(r: torch.Tensor, center: torch.Tensor, direction: torch.Tensor):

@@ -14,7 +14,7 @@ from typing import Any
 import torch
 
 # (a, b, c, d, (f_min_GHz, f_max_GHz) | None)
-ItuRow = tuple[float, float, float, float, "tuple[float, float] | None"]
+ItuProperties = tuple[float, float, float, float, "tuple[float, float] | None"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,14 +29,14 @@ class Material:
     """
 
     name: str
-    rows: tuple[ItuRow, ...]
+    rows: tuple[ItuProperties, ...]
     thickness: float | None = None
     """Slab thickness (m); None: semi-infinite."""
     aliases: tuple[str, ...] = ()
     """Other names of the material (Sionna's ``itu_*``)."""
 
     @classmethod
-    def from_itu_properties(cls, name: str, *rows: ItuRow) -> "Material":
+    def from_itu_properties(cls, name: str, *rows: ItuProperties) -> "Material":
         """A material from ITU-R P.2040-4 ``(a, b, c, d, f_range_GHz)`` rows, aliased ``itu_<name>``.
 
         A catch-all row (a range of None) cannot sit beside other rows.
@@ -151,7 +151,7 @@ class MaterialsDict(dict):
 
 
 # ITU-R P.2040-4 Table 3 coefficients (public standard data).
-_ITU_MATERIALS_TABLE: dict[str, tuple[ItuRow, ...]] = {
+_ITU_MATERIALS_TABLE: dict[str, tuple[ItuProperties, ...]] = {
     "Vacuum": ((1.0, 0.0, 0.0, 0.0, None),),
     "Concrete": (
         (5.24, 0.0, 0.0462, 0.7822, (1.0, 100.0)),

@@ -11,7 +11,7 @@ from ._candidates import (
 )
 from ._lattice import fibonacci_lattice, viewing_frustum
 from ._mesh import Mesh
-from ._paths import LaunchedPaths, TracedPaths, concatenate_paths, merge_cell_ids
+from ._paths import LaunchedPaths, Paths, SBRPaths, TracedPaths, concatenate_paths, merge_cell_ids
 from ._scene import Scene, TriangleScene
 from ._vectors import (
     assemble_path,
@@ -31,6 +31,8 @@ from ._vectors import (
 __all__ = (
     "LaunchedPaths",
     "Mesh",
+    "Paths",
+    "SBRPaths",
     "Scene",
     "SizedIterator",
     "TracedPaths",

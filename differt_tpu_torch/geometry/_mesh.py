@@ -1030,3 +1030,9 @@ class Mesh:
         from ..ops import dispatch_triangles_visible_from_vertex
 
         return dispatch_triangles_visible_from_vertex(self, vertex, num_rays=num_rays, **kwargs)
+
+    def plot(self, **kwargs):
+        """Draw the mesh (:func:`differt_tpu_torch.plotting.draw_mesh`)."""
+        from ..plotting import draw_mesh
+
+        return draw_mesh(self, **kwargs)

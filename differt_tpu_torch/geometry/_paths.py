@@ -12,7 +12,9 @@ equal to it, the JAX package's numbering.
 """
 
 import dataclasses
-from collections.abc import Callable, Sequence
+import warnings
+from collections.abc import Callable, Iterator, Sequence
+from typing import Any
 
 import torch
 
@@ -235,6 +237,30 @@ class TracedPaths:
             ),
         )
 
+    def squeeze(self, axis: int | Sequence[int] | None = None) -> "TracedPaths":
+        """Drop batch dimensions of extent one (all of them, or those of ``axis``)."""
+        axes = _squeeze_axes(axis, self.shape)
+        return self._remap(lambda x, nd: x.squeeze(axes) if axes else x)
+
+    def __iter__(self) -> Iterator["TracedPaths"]:
+        """The valid paths one by one, each of batch shape ``()`` with a true mask."""
+        flat = self.masked()
+        true = torch.ones((), dtype=torch.bool, device=flat.mask.device)
+        for i in range(flat.vertices.shape[0]):
+            yield TracedPaths(
+                vertices=flat.vertices[i],
+                objects=flat.objects[i],
+                mask=true,
+                interaction_types=flat.interaction_types[i],
+                confidence_threshold=flat.confidence_threshold,
+            )
+
+    def plot(self, **kwargs: Any):
+        """Draw the valid paths (:func:`differt_tpu_torch.plotting.draw_paths`)."""
+        from ..plotting import draw_paths
+
+        return draw_paths(self.masked_vertices, **kwargs)
+
 
 def concatenate_paths(batches: Sequence[TracedPaths]) -> TracedPaths:
     """Join path batches along the candidate (last batch) axis.
@@ -267,6 +293,18 @@ def concatenate_paths(batches: Sequence[TracedPaths]) -> TracedPaths:
     return dataclasses.replace(
         padded[0], **{name: cat(name, nd) for name, nd in TracedPaths._TRAILING}
     )
+
+
+class Paths(TracedPaths):
+    """Deprecated alias of :class:`TracedPaths`."""
+
+    def __init__(self, *args: Any, **kwargs: Any) -> None:
+        warnings.warn(
+            "Paths was renamed to TracedPaths; this alias will be removed.",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        super().__init__(*args, **kwargs)
 
 
 def _squeeze_axes(axis: int | Sequence[int] | None, batch_shape: tuple[int, ...]) -> tuple[int, ...]:
@@ -356,3 +394,42 @@ class LaunchedPaths:
         """Drop batch dimensions of extent one (all of them, or those of ``axis``)."""
         axes = _squeeze_axes(axis, self.shape)
         return self._remap(lambda x, nd: x.squeeze(axes) if axes else x)
+
+    def masked(self) -> TracedPaths:
+        """The valid paths of the highest order, their batch flattened."""
+        return self.get_paths(self.order).masked()
+
+    @property
+    def masked_vertices(self) -> torch.Tensor:
+        """``[num_valid_paths, path_length, 3]``: the vertices of the valid highest-order paths."""
+        return self.masked().vertices
+
+    @property
+    def masked_objects(self) -> torch.Tensor:
+        """``[num_valid_paths, path_length]``: the objects of the valid highest-order paths."""
+        return self.masked().objects
+
+    def __iter__(self) -> Iterator[TracedPaths]:
+        """The valid highest-order paths one by one."""
+        yield from self.get_paths(self.order)
+
+    def plot(self, **kwargs: Any):
+        """Draw the valid paths of every order into one figure; ``kwargs`` go to every draw."""
+        from ..plotting import reuse
+
+        with reuse(**kwargs, pass_all_kwargs=True) as output:
+            for order in range(self.order + 1):
+                self.get_paths(order).plot()
+        return output
+
+
+class SBRPaths(LaunchedPaths):
+    """Deprecated alias of :class:`LaunchedPaths`."""
+
+    def __init__(self, *args: Any, **kwargs: Any) -> None:
+        warnings.warn(
+            "SBRPaths was renamed to LaunchedPaths; this alias will be removed.",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        super().__init__(*args, **kwargs)

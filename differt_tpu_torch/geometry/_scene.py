@@ -330,6 +330,18 @@ class Scene:
             grid_size=grid_size,
         )
 
+    def plot(self, **kwargs):
+        """Draw the mesh and markers at the transmitters and receivers, in one figure; ``kwargs`` go to every draw."""
+        from ..plotting import draw_markers, draw_mesh, reuse
+
+        with reuse(**kwargs, pass_all_kwargs=True) as output:
+            draw_mesh(self.mesh)
+            if self.num_transmitters:
+                draw_markers(self.transmitters.reshape(-1, 3), labels=["tx"])
+            if self.num_receivers:
+                draw_markers(self.receivers.reshape(-1, 3), labels=["rx"])
+        return output
+
 
 class TriangleScene(Scene):
     """Deprecated alias of :class:`Scene`."""

@@ -1,30 +1,384 @@
-"""Gradient steps on coverage maps (PyTorch port of ``differt_tpu.parallel._sharding``, one device).
+"""Device meshes on ``torch.distributed`` and gradient steps on coverage maps (PyTorch port of ``differt_tpu.parallel._sharding``).
+
+A mesh (:class:`DeviceMesh`) is one axis of ranks of a process group. The
+scene is replicated on every rank (:func:`replicate`, a broadcast from the
+mesh's first rank); the receiver or candidate axis is split into one
+contiguous block a rank (:func:`shard_along`); each rank traces its block,
+and the results are gathered so that every rank holds them whole, as a
+global ``jax.Array`` reads whole. Gradients follow JAX's semantics for
+replicated inputs: a tensor that went through :func:`replicate` gets the
+whole gradient on every rank (the backward of the broadcast is a sum over
+the ranks, the backward of the gather this rank's slice).
 
 :func:`training_step` and :func:`placement_training_step` differentiate a
 coverage map held whole; :func:`streamed_placement_step` streams the same
 loss and its gradient through fixed-size (RX tile, candidate chunk)
-buffers, so that a city-scale grid fits one card. The device-mesh forms
-(``sharded_trace_paths``, ``sharded_power_map``, ``make_device_mesh``) are
-not ported yet (ROADMAP A11): the ``mesh`` argument must be None.
+buffers, so that a city-scale grid fits one card. With ``mesh=None`` each
+runs on one device with no collective.
 """
 
 import dataclasses
+import socket
 from collections.abc import Iterator, Sequence
 
 import torch
+import torch.distributed as dist
 
 from ..coverage import _coverage_tile, _resolve_materials, received_power
 from ..em import z_0
-from ..geometry import Scene
+from ..geometry import Scene, TracedPaths, generate_path_candidates
+from ..rt._solvers import trace_path_candidates as _trace_path_candidates
 
 _POWER_FLOOR = 1e-30
 """Floor of the power under the logarithm: pixels below it sit at -300 dB and pass no gradient."""
 
 
-def _one_device(mesh) -> None:
-    if mesh is not None:
-        msg = "A device mesh is not ported yet (ROADMAP A11): pass mesh=None to run on one device."
-        raise NotImplementedError(msg)
+@dataclasses.dataclass(frozen=True)
+class DeviceMesh:
+    """A 1-D mesh: the first :attr:`size` ranks of the default process group, one block each.
+
+    ``group`` is the process group the collectives run on (None: the whole
+    default group), ``rank`` this process's index in it, ``device`` where
+    its tensors live.
+    """
+
+    group: dist.ProcessGroup | None
+    axis_name: str
+    size: int
+    rank: int
+    device: torch.device
+
+    @property
+    def axis_names(self) -> tuple[str]:
+        return (self.axis_name,)
+
+    @property
+    def source(self) -> int:
+        """The global rank of the mesh's first rank, the source of :func:`replicate`'s broadcast."""
+        return 0 if self.group is None else dist.get_global_rank(self.group, 0)
+
+
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def make_device_mesh(
+    num_devices: int | None = None,
+    axis_name: str = "rx",
+    device: torch.device | str | None = None,
+) -> DeviceMesh:
+    """A 1-D mesh over the first ``num_devices`` ranks of the default process group.
+
+    The caller initializes the group, as ``torchrun`` does. Without one, and
+    with ``num_devices`` None or 1, a group of one rank is made here: NCCL
+    for a CUDA ``device``, gloo for the CPU. ``device=None`` is the current
+    CUDA device. A mesh smaller than the group makes a new group, so every
+    rank of the default group calls this; a rank outside the mesh gets a
+    mesh it cannot run on.
+
+    >>> import torch.distributed as dist
+    >>> from differt_tpu_torch.parallel import make_device_mesh
+    >>> mesh = make_device_mesh(1, device="cpu")
+    >>> mesh.axis_names, mesh.size, mesh.rank
+    (('rx',), 1, 0)
+    >>> dist.destroy_process_group()
+    """
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if not dist.is_initialized():
+        if num_devices not in (None, 1):
+            msg = f"A mesh of {num_devices} ranks needs the default process group initialized first."
+            raise ValueError(msg)
+        dist.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo",
+            init_method=f"tcp://localhost:{_free_port()}",
+            world_size=1,
+            rank=0,
+            **({"device_id": device} if device.type == "cuda" else {}),
+        )
+    world = dist.get_world_size()
+    size = world if num_devices is None else num_devices
+    if not 1 <= size <= world:
+        msg = f"A mesh of {size} ranks does not fit a process group of {world}."
+        raise ValueError(msg)
+    group = None if size == world else dist.new_group(list(range(size)))
+    rank = dist.get_rank()
+    return DeviceMesh(group, axis_name, size, rank if rank < size else -1, device)
+
+
+def _member(mesh: DeviceMesh) -> None:
+    if mesh.rank < 0:
+        msg = f"Rank {dist.get_rank()} is not in the mesh of the first {mesh.size} ranks."
+        raise ValueError(msg)
+
+
+def _block(n: int, mesh: DeviceMesh, axis: int) -> tuple[int, int]:
+    if n % mesh.size:
+        msg = (
+            f"Axis {axis} of length {n} does not split into {mesh.size} equal blocks:"
+            " pad it to a multiple of the mesh size first."
+        )
+        raise ValueError(msg)
+    width = n // mesh.size
+    return mesh.rank * width, width
+
+
+def shard_along(x: torch.Tensor, mesh: DeviceMesh, axis: int = 0) -> torch.Tensor:
+    """This rank's contiguous block of ``x`` along ``axis``, on the mesh's device.
+
+    The axis must split evenly (as JAX's ``NamedSharding`` asks): callers
+    pad first.
+    """
+    _member(mesh)
+    x = torch.as_tensor(x)
+    start, width = _block(x.shape[axis], mesh, axis)
+    return x.narrow(axis, start, width).to(mesh.device)
+
+
+def _to_wire(x: torch.Tensor) -> torch.Tensor:
+    """A tensor every backend's collectives take: booleans as ``uint8``, complex as (re, im) pairs."""
+    if x.dtype == torch.bool:
+        return x.to(torch.uint8)
+    if x.is_complex():
+        return torch.view_as_real(x)
+    return x
+
+
+def _from_wire(wire: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    if like.dtype == torch.bool:
+        return wire.to(torch.bool)
+    if like.is_complex():
+        return torch.view_as_complex(wire)
+    return wire
+
+
+def _broadcast(x: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
+    """Rank 0's ``x`` on every rank (the source's own tensor, moved to the device, on the source)."""
+    x = x.to(mesh.device)
+    wire = _to_wire(x if mesh.rank == 0 else torch.empty_like(x))
+    dist.broadcast(wire.contiguous() if mesh.rank == 0 else wire, mesh.source, group=mesh.group)
+    return x if mesh.rank == 0 else _from_wire(wire, x)
+
+
+def _all_reduce(x: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
+    wire = _to_wire(x).contiguous()
+    dist.all_reduce(wire, group=mesh.group)
+    return _from_wire(wire, x)
+
+
+class _Replicate(torch.autograd.Function):
+    """Forward: rank 0's tensors on every rank. Backward: the sum of every rank's gradient."""
+
+    @staticmethod
+    def forward(ctx, mesh, *xs):
+        ctx.mesh = mesh
+        ctx.shapes = [(x.shape, x.dtype) for x in xs]
+        return tuple(_broadcast(x, mesh).clone() for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        # Every rank whose backward reaches any output runs this once, the
+        # tensors in the same order: an unused output's gradient is zeros.
+        out = []
+        for needed, grad, (shape, dtype) in zip(ctx.needs_input_grad[1:], grads, ctx.shapes, strict=True):
+            if not needed:
+                out.append(None)
+                continue
+            if grad is None:
+                grad = torch.zeros(shape, dtype=dtype, device=ctx.mesh.device)
+            out.append(_all_reduce(grad, ctx.mesh))
+        return None, *out
+
+
+def _tensors(tree) -> list[torch.Tensor]:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [t for f in dataclasses.fields(tree) if f.init for t in _tensors(getattr(tree, f.name))]
+    if isinstance(tree, (list, tuple)):
+        return [t for item in tree for t in _tensors(item)]
+    if isinstance(tree, dict):
+        return [t for item in tree.values() for t in _tensors(item)]
+    return []
+
+
+def _rebuild(tree, new: Iterator[torch.Tensor]):
+    """``tree`` with its tensors taken in order from ``new``; a part whose tensors all come back unchanged is kept as it was (a mesh with its cached BVH)."""
+    if isinstance(tree, torch.Tensor):
+        return next(new)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        names = [f.name for f in dataclasses.fields(tree) if f.init]
+        old = [getattr(tree, name) for name in names]
+        items = [_rebuild(item, new) for item in old]
+        if all(a is b for a, b in zip(items, old, strict=True)):
+            return tree
+        return dataclasses.replace(tree, **dict(zip(names, items, strict=True)))
+    if isinstance(tree, (list, tuple, dict)):
+        old = list(tree.values() if isinstance(tree, dict) else tree)
+        items = [_rebuild(item, new) for item in old]
+        if all(a is b for a, b in zip(items, old, strict=True)):
+            return tree
+        if isinstance(tree, dict):
+            return dict(zip(tree, items, strict=True))
+        return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
+    return tree
+
+
+def replicate(tree, mesh: DeviceMesh):
+    """Every tensor of ``tree`` (tensors, the port's dataclasses, tuples, lists, dicts) as rank 0 holds it, on the mesh's device.
+
+    A tensor that requires a gradient goes through one autograd Function
+    whose backward sums the gradient over the ranks: each rank's gradient of
+    a loss that every rank computes alike from gathered results is then the
+    whole gradient. Other tensors are broadcast plainly; on rank 0 they are
+    the caller's own (moved to the device), so a :class:`Mesh
+    <differt_tpu_torch.geometry.Mesh>` there keeps its cached BVH.
+    """
+    _member(mesh)
+    tensors = _tensors(tree)
+    grads = [i for i, x in enumerate(tensors) if x.requires_grad]
+    out = [x if x.requires_grad else _broadcast(x, mesh) for x in tensors]
+    if grads:
+        with_grad = _Replicate.apply(mesh, *(tensors[i] for i in grads))
+        for i, x in zip(grads, with_grad, strict=True):
+            out[i] = x
+    return _rebuild(tree, iter(out))
+
+
+class _Gather(torch.autograd.Function):
+    """Forward: every rank's block along ``axis``, whole on every rank. Backward: this rank's slice."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis, ctx.width = mesh, axis, x.shape[axis]
+        shape = list(x.shape)
+        shape[axis] *= mesh.size
+        # A zero-filled whole in which each rank writes its block, summed:
+        # exact values (x + 0 = x) and one code path for gloo and NCCL.
+        whole = x.new_zeros(shape)
+        whole.narrow(axis, mesh.rank * ctx.width, ctx.width).copy_(x)
+        return _all_reduce(whole, mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.axis, ctx.mesh.rank * ctx.width, ctx.width), None, None
+
+
+def _gather(x: torch.Tensor, mesh: DeviceMesh, axis: int) -> torch.Tensor:
+    return _Gather.apply(x, mesh, axis % x.ndim)
+
+
+def _pad_rows(x: torch.Tensor, multiple: int) -> torch.Tensor:
+    """``x`` padded along its first axis to a multiple of ``multiple`` with copies of its first row."""
+    pad = -x.shape[0] % multiple
+    return torch.cat((x, x[:1].expand(pad, *x.shape[1:]))) if pad else x
+
+
+def sharded_trace_paths(
+    scene: Scene,
+    order: int,
+    mesh: DeviceMesh,
+    *,
+    shard_candidates: bool = True,
+    **solver_kwargs,
+) -> TracedPaths:
+    """The exhaustive trace with the candidate axis split over the mesh's ranks.
+
+    The candidates are padded to a multiple of the mesh size with copies of
+    candidate 0, each rank traces its block (through
+    :func:`~differt_tpu_torch.rt.trace_path_candidates`, ``solver_kwargs``
+    passed on) and the blocks are gathered: every rank returns the whole,
+    whose candidate axis keeps its padded length, the padded rows masked
+    out. With ``shard_candidates=False`` every rank traces every candidate
+    and no collective runs.
+    """
+    _member(mesh)
+    num_primitives = scene.mesh.num_primitives
+    candidates = generate_path_candidates(num_primitives, order, device=mesh.device)
+    if scene.mesh.assume_quads:
+        candidates = 2 * candidates
+    if not shard_candidates:
+        scene = _rebuild(scene, (x.to(mesh.device) for x in _tensors(scene)))
+        return _trace_path_candidates(
+            scene.mesh,
+            scene.transmitters.reshape(-1, 3),
+            scene.receivers.reshape(-1, 3),
+            candidates,
+            **solver_kwargs,
+        )
+
+    num_candidates = candidates.shape[0]
+    candidates = _pad_rows(candidates, mesh.size)
+    block = shard_along(candidates, mesh, axis=0)
+    scene = replicate(scene, mesh)
+    paths = _trace_path_candidates(
+        scene.mesh,
+        scene.transmitters.reshape(-1, 3),
+        scene.receivers.reshape(-1, 3),
+        block,
+        **solver_kwargs,
+    )
+    # [tx, rx, candidates, ...]: gather along the candidate axis.
+    paths = paths._remap(lambda x, nd: _gather(x, mesh, x.ndim - nd - 1))
+    valid = torch.arange(candidates.shape[0], device=mesh.device) < num_candidates
+    if paths.mask.dtype == torch.bool:
+        mask = paths.mask & valid
+    else:
+        mask = torch.where(valid, paths.mask, 0.0)
+    return dataclasses.replace(paths, mask=mask)
+
+
+def sharded_power_map(
+    scene: Scene,
+    frequency,
+    mesh: DeviceMesh,
+    *,
+    order: int = 1,
+    eta_r: torch.Tensor | None = None,
+    conductivity: torch.Tensor | None = None,
+    thickness: torch.Tensor | None = None,
+    coherent: bool = True,
+) -> torch.Tensor:
+    """The coverage map of ``order`` with the receiver axis split over the mesh's ranks.
+
+    Materials default to the ITU table at ``frequency``. The receivers are
+    flattened and padded to a multiple of the mesh size with copies of the
+    first; each rank traces its block and computes its received power, and
+    the blocks are gathered: every rank returns the whole
+    ``[*tx_batch, *rx_batch]`` map. The map is differentiable: the scene and
+    the materials go through :func:`replicate`, so a gradient with respect
+    to any of them is the whole gradient on every rank.
+    """
+    _member(mesh)
+    frequency = torch.as_tensor(frequency, dtype=torch.float32, device=mesh.device)
+    if eta_r is None or conductivity is None:
+        eta_r, conductivity, thickness = _resolve_materials(
+            scene, frequency, eta_r, conductivity, thickness
+        )
+    rx_batch = scene.receivers.shape[:-1]
+    rx_flat = scene.receivers.reshape(-1, 3)
+    num_rx = rx_flat.shape[0]
+    block = shard_along(_pad_rows(rx_flat, mesh.size), mesh, axis=0)
+    scene, frequency, eta_r, conductivity, thickness = replicate(
+        (dataclasses.replace(scene, receivers=rx_flat[:0]), frequency, eta_r, conductivity, thickness),
+        mesh,
+    )
+    scene = dataclasses.replace(scene, receivers=block)
+    power = received_power(
+        scene.trace_paths(order=order),
+        scene,
+        frequency,
+        eta_r=eta_r,
+        conductivity=conductivity,
+        thickness=thickness,
+        coherent=coherent,
+    )
+    tx_batch = scene.transmitters.shape[:-1]
+    power = _gather(power.reshape(*tx_batch, -1), mesh, -1)[..., :num_rx]
+    return power.reshape(*tx_batch, *rx_batch)
 
 
 def _power_db(power: torch.Tensor) -> torch.Tensor:
@@ -39,10 +393,15 @@ def _db_loss(power_db: torch.Tensor, target_power) -> torch.Tensor:
     return -torch.mean(power_db)
 
 
-def _map_loss(scene: Scene, frequency, order: int, tx, eta_r, conductivity, target_power):
-    """The dB loss of the coverage map of ``order``, held whole."""
+def _map_loss(scene: Scene, frequency, mesh, order: int, tx, eta_r, conductivity, target_power):
+    """The dB loss of the coverage map of ``order``, held whole (gathered on every rank of a mesh)."""
     if tx is not None:
         scene = dataclasses.replace(scene, transmitters=tx)
+    if mesh is not None:
+        power = sharded_power_map(
+            scene, frequency, mesh, order=order, eta_r=eta_r, conductivity=conductivity
+        )
+        return _db_loss(_power_db(power), target_power)
     device = scene.mesh.device
     frequency = torch.as_tensor(frequency, dtype=torch.float32, device=device)
     power = received_power(
@@ -74,11 +433,12 @@ def training_step(
     """One gradient-descent step on the materials' permittivity.
 
     The loss is the dB mean-squared error of the order-``order`` coverage
-    map to ``target_power``. Returns the updated ``eta_r`` and the loss.
+    map to ``target_power``. With a ``mesh`` the map is
+    :func:`sharded_power_map`'s: every rank computes the same loss and gets
+    the whole gradient. Returns the updated ``eta_r`` and the loss.
     """
-    _one_device(mesh)
-    eta = _leaf(eta_r, scene.mesh.device)
-    loss = _map_loss(scene, frequency, order, None, eta, conductivity, target_power)
+    eta = _leaf(eta_r, scene.mesh.device if mesh is None else mesh.device)
+    loss = _map_loss(scene, frequency, mesh, order, None, eta, conductivity, target_power)
     (grad,) = torch.autograd.grad(loss, (eta,))
     return eta.detach() - learning_rate * grad, loss.detach()
 
@@ -102,13 +462,13 @@ def placement_training_step(
     and the EM chain (directions, spreading, phase); hard validity masks
     are frozen selectors. With ``target_power`` (dB) the loss is the dB
     mean-squared error; without it the negated mean dB power over the
-    receivers (coverage-optimal placement). Returns the updated ``tx`` and
-    ``eta_r`` and the loss.
+    receivers (coverage-optimal placement). With a ``mesh`` the map is
+    :func:`sharded_power_map`'s, and every rank gets the same update.
+    Returns the updated ``tx`` and ``eta_r`` and the loss.
     """
-    _one_device(mesh)
-    device = scene.mesh.device
+    device = scene.mesh.device if mesh is None else mesh.device
     tx_leaf, eta = _leaf(tx, device), _leaf(eta_r, device)
-    loss = _map_loss(scene, frequency, order, tx_leaf, eta, conductivity, target_power)
+    loss = _map_loss(scene, frequency, mesh, order, tx_leaf, eta, conductivity, target_power)
     g_tx, g_eta = torch.autograd.grad(loss, (tx_leaf, eta))
     return (
         tx_leaf.detach() - tx_learning_rate * g_tx,
@@ -134,7 +494,7 @@ def _tile_amplitude_parts(
 
 
 def _streamed_setup(
-    scene: Scene, frequency, tx, eta_r, conductivity, thickness,
+    scene: Scene, frequency, mesh, tx, eta_r, conductivity, thickness,
     path_candidates, candidate_chunk: int, rx_chunk: int,
 ):
     """Padding and tiling shared by the streamed loss and step.
@@ -145,9 +505,14 @@ def _streamed_setup(
     ``[C, order]`` tensor or a sequence of them, one per order: every
     order's chunks go through the same tile step, so the accumulated
     amplitude is the coherent sum over the orders.
+
+    With a ``mesh`` the scene, TX and materials are replicated (detached:
+    the step sums the ranks' gradients itself) and each RX tile is padded to
+    a multiple of the mesh size with copies of its first receiver, this
+    rank taking its block.
     """
-    device = scene.mesh.device
-    frequency = torch.as_tensor(frequency, dtype=torch.float32, device=device)
+    device = scene.mesh.device if mesh is None else mesh.device
+    frequency = torch.as_tensor(frequency, dtype=torch.float32, device=scene.mesh.device)
     eta_r, conductivity, thickness = _resolve_materials(
         scene, frequency, eta_r, conductivity, thickness
     )
@@ -174,10 +539,17 @@ def _streamed_setup(
         prepared.append((cand, n, chunk))
 
     scene_tile = dataclasses.replace(scene, receivers=rx_all.new_zeros((0, 3)))
+    if mesh is not None:
+        detached = [None if x is None else x.detach() for x in (tx, eta_r, conductivity, thickness)]
+        scene_tile, frequency, tx, eta_r, conductivity, thickness = replicate(
+            (scene_tile, frequency, *detached), mesh
+        )
 
     def tiles() -> Iterator[tuple[int, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]]:
         for row, r0 in enumerate(range(0, rx_all.shape[0], rx_chunk)):
             rx_tile = rx_all[r0 : r0 + rx_chunk]
+            if mesh is not None:
+                rx_tile = shard_along(_pad_rows(rx_tile, mesh.size), mesh)
             for cand, n, chunk in prepared:
                 for c0 in range(0, cand.shape[0], chunk):
                     part = cand[c0 : c0 + chunk]
@@ -193,10 +565,13 @@ def _streamed_setup(
 
 
 def _streamed_forward(
-    scene_tile, tiles, tx, frequency, eta_r, conductivity, thickness, num_rx,
+    scene_tile, tiles, mesh, tx, frequency, eta_r, conductivity, thickness, num_rx, rx_chunk,
     megakernel, batch_size, smoothing_factor=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Pass 1: the per-pixel coherent amplitude sum, tile by tile, as (real, imag) ``[num_tx, num_rx]``."""
+    """Pass 1: the per-pixel coherent amplitude sum, tile by tile, as (real, imag) ``[num_tx, num_rx]``.
+
+    On a mesh each rank sums its blocks, and one gather gives every rank the whole.
+    """
     rows: list[torch.Tensor] = []  # one complex sum per RX tile; the tiles come row by row
     with torch.no_grad():
         for row, rx_tile, cand, itypes, valid in tiles():
@@ -208,7 +583,10 @@ def _streamed_forward(
                 rows.append(part)
             else:
                 rows[row] = rows[row] + part
-        total = torch.cat(rows, dim=-1)[..., :num_rx]
+        totals = torch.stack(rows)  # [rows, num_tx, tile or block]
+        if mesh is not None:
+            totals = _gather(totals, mesh, -1)[..., :rx_chunk]
+        total = totals.transpose(0, 1).reshape(totals.shape[1], -1)[..., :num_rx]
     return total.real.clone(), total.imag.clone()
 
 
@@ -240,18 +618,18 @@ def streamed_placement_loss(
     finite-difference probe of the streamed gradient. With
     ``return_db_map=True`` the per-pixel dB power ``[num_tx, num_rx]`` comes
     back instead of its mean: a probe whose loss differs by a few float32
-    ulps of a mean near 260 dB takes that mean in float64 on the host.
+    ulps of a mean near 260 dB takes that mean in float64 on the host. With
+    a device ``mesh`` every rank returns the whole loss or map.
     """
-    _one_device(mesh)
-    frequency, tx, eta_r, conductivity, thickness, scene_tile, tiles, num_rx, _, _ = (
+    frequency, tx, eta_r, conductivity, thickness, scene_tile, tiles, num_rx, rx_chunk, _ = (
         _streamed_setup(
-            scene, frequency, tx, eta_r, conductivity, thickness,
+            scene, frequency, mesh, tx, eta_r, conductivity, thickness,
             path_candidates, candidate_chunk, rx_chunk,
         )
     )
     re, im = _streamed_forward(
-        scene_tile, tiles, tx, frequency, eta_r, conductivity, thickness, num_rx,
-        megakernel, batch_size, smoothing_factor,
+        scene_tile, tiles, mesh, tx, frequency, eta_r, conductivity, thickness, num_rx,
+        rx_chunk, megakernel, batch_size, smoothing_factor,
     )
     if return_db_map:
         return _power_db((re**2 + im**2) / z_0)
@@ -296,8 +674,12 @@ def streamed_placement_step(
 
     Nothing of a tile's graph outlives the tile: peak memory is
     ``O(candidate_chunk * rx_chunk)`` whatever the grid. The mesh's BVH is
-    built once, as moving the TX does not change the mesh. Returns the
-    updated ``tx`` and ``eta_r`` and the loss.
+    built once, as moving the TX does not change the mesh. With a device
+    ``mesh`` each RX tile is split over the ranks: pass 1 gathers the sums,
+    every rank computes the same loss, pass 3 runs this rank's blocks
+    against their slices, and the gradients are summed over the ranks once
+    a step. Returns the updated ``tx`` and ``eta_r`` and the loss (the same
+    on every rank).
 
     >>> import torch
     >>> from differt_tpu_torch.geometry import Mesh, Scene, generate_path_candidates
@@ -318,17 +700,16 @@ def streamed_placement_step(
     >>> bool((tx != scene.transmitters).any())
     True
     """
-    _one_device(mesh)
     frequency, tx, eta_r, conductivity, thickness, scene_tile, tiles, num_rx, rx_chunk, pad_r = (
         _streamed_setup(
-            scene, frequency, tx, eta_r, conductivity, thickness,
+            scene, frequency, mesh, tx, eta_r, conductivity, thickness,
             path_candidates, candidate_chunk, rx_chunk,
         )
     )
     tx, eta_r = tx.detach(), eta_r.detach()
     re, im = _streamed_forward(
-        scene_tile, tiles, tx, frequency, eta_r, conductivity, thickness, num_rx,
-        megakernel, batch_size, smoothing_factor,
+        scene_tile, tiles, mesh, tx, frequency, eta_r, conductivity, thickness, num_rx,
+        rx_chunk, megakernel, batch_size, smoothing_factor,
     )
 
     # Pass 2: the loss and its gradient on the accumulated sums only.
@@ -346,6 +727,12 @@ def streamed_placement_step(
     g_eta = torch.zeros_like(eta_r)
     for row, rx_tile, cand, itypes, valid in tiles():
         sl = slice(row * rx_chunk, (row + 1) * rx_chunk)
+        cotangents = (g_re[:, sl], g_im[:, sl])
+        if mesh is not None:  # this rank's block; the padded receivers' cotangent is 0
+            cotangents = tuple(
+                shard_along(torch.cat((g, g.new_zeros(g.shape[0], -g.shape[1] % mesh.size)), -1), mesh, 1)
+                for g in cotangents
+            )
         tx_leaf = tx.clone().requires_grad_()
         eta_leaf = eta_r.clone().requires_grad_()
         parts = _tile_amplitude_parts(
@@ -353,13 +740,14 @@ def streamed_placement_step(
             conductivity, thickness, megakernel, batch_size, smoothing_factor,
         )
         # A line-of-sight tile reads no material: its share of g_eta is None.
-        d_tx, d_eta = torch.autograd.grad(
-            parts, (tx_leaf, eta_leaf), (g_re[:, sl], g_im[:, sl]), allow_unused=True
-        )
+        d_tx, d_eta = torch.autograd.grad(parts, (tx_leaf, eta_leaf), cotangents, allow_unused=True)
         del parts
         if d_tx is not None:
             g_tx += d_tx
         if d_eta is not None:
             g_eta += d_eta
+    if mesh is not None:  # one sum over the ranks a step, whatever each rank's tiles read
+        summed = _all_reduce(torch.cat((g_tx.reshape(-1), g_eta)), mesh)
+        g_tx, g_eta = summed[: g_tx.numel()].reshape(g_tx.shape), summed[g_tx.numel() :]
 
     return tx - tx_learning_rate * g_tx, eta_r - eta_learning_rate * g_eta, loss.detach()

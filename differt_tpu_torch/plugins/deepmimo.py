@@ -149,9 +149,13 @@ class DeepMIMO:
         return SizedIterator(it(), size=max_inter + 1)
 
     def plot_paths(self, **kwargs):
-        """Not ported yet: plotting waits for the port's plotting adapter (ROADMAP A12)."""
-        msg = "DeepMIMO.plot_paths needs the port's plotting adapter, queued in ROADMAP A12."
-        raise NotImplementedError(msg)
+        """Draw every valid path into one figure, one draw per interaction count; ``kwargs`` go to every draw."""
+        from ..plotting import draw_paths, reuse
+
+        with reuse(**kwargs, pass_all_kwargs=True) as output:
+            for paths in self.iter_paths():
+                draw_paths(paths)
+        return output
 
 
 def _slab_tables(

@@ -20,6 +20,47 @@ def sign(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isnan(x), x, torch.sign(x))
 
 
+def image_of_vertex_with_respect_to_mirror(
+    vertex: torch.Tensor, mirror_vertex: torch.Tensor, mirror_normal: torch.Tensor
+) -> torch.Tensor:
+    """The mirror image of ``vertex`` across the plane through ``mirror_vertex`` of unit normal ``mirror_normal`` (all ``[*batch, 3]``, broadcast).
+
+    >>> import torch
+    >>> image_of_vertex_with_respect_to_mirror(
+    ...     torch.tensor([1.0, 2.0, 3.0]), torch.tensor([0.0, 0.0, 1.0]), torch.tensor([0.0, 0.0, 1.0])
+    ... ).tolist()
+    [1.0, 2.0, -1.0]
+    """
+    offset = _dot(vertex - mirror_vertex, mirror_normal)[..., None]
+    return vertex - 2.0 * offset * mirror_normal
+
+
+def intersection_of_ray_with_plane(
+    ray_origin: torch.Tensor,
+    ray_direction: torch.Tensor,
+    plane_vertex: torch.Tensor,
+    plane_normal: torch.Tensor,
+) -> torch.Tensor:
+    """Where the line ``ray_origin + t ray_direction`` meets the plane (all ``[*batch, 3]``, broadcast).
+
+    A ray parallel to the plane and off it gives ``inf``; one in the plane
+    gives its origin.
+
+    >>> import torch
+    >>> intersection_of_ray_with_plane(
+    ...     torch.tensor([0.0, 0.0, 2.0]), torch.tensor([1.0, 0.0, -1.0]),
+    ...     torch.tensor([0.0, 0.0, 0.0]), torch.tensor([0.0, 0.0, 1.0]),
+    ... ).tolist()
+    [2.0, 0.0, 0.0]
+    """
+    dn = _dot(ray_direction, plane_normal)[..., None]
+    vn = _dot(plane_vertex - ray_origin, plane_normal)[..., None]
+    parallel = dn == 0.0
+    t = vn / torch.where(parallel, torch.ones_like(dn), dn)
+    point = ray_origin + ray_direction * t
+    return torch.where(parallel & (vn != 0.0), torch.full_like(point, torch.inf), point)
+
+
 def image_method(
     from_vertex: torch.Tensor,
     to_vertex: torch.Tensor,
@@ -55,27 +96,20 @@ def image_method(
     images = []
     image = from_vertex
     for b in range(num_mirrors):
-        mv = mirror_vertices[..., b, :]
-        n = mirror_normals[..., b, :]
-        offset = _dot(image - mv, n)[..., None]
-        image = image - 2.0 * offset * n
+        image = image_of_vertex_with_respect_to_mirror(
+            image, mirror_vertices[..., b, :], mirror_normals[..., b, :]
+        )
         images.append(image)
 
     points = [None] * num_mirrors
     point = to_vertex
     for b in reversed(range(num_mirrors)):
-        mv = mirror_vertices[..., b, :]
-        n = mirror_normals[..., b, :]
         # inf - inf would be NaN: intersect from 0 and restore inf after.
         invalid = torch.isinf(point)
         safe = torch.where(invalid, torch.zeros_like(point), point)
-        direction = images[b] - safe
-        dn = _dot(direction, n)[..., None]
-        vn = _dot(mv - safe, n)[..., None]
-        parallel = dn == 0.0
-        t = vn / torch.where(parallel, torch.ones_like(dn), dn)
-        hit = safe + direction * t
-        hit = torch.where(parallel & (vn != 0.0), torch.full_like(hit, torch.inf), hit)
+        hit = intersection_of_ray_with_plane(
+            safe, images[b] - safe, mirror_vertices[..., b, :], mirror_normals[..., b, :]
+        )
         point = torch.where(invalid, torch.full_like(hit, torch.inf), hit)
         points[b] = point.expand(*batch, 3)
     return torch.stack(points, dim=-2)

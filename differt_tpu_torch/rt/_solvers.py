@@ -411,7 +411,16 @@ def _assemble_traced_paths(
     )
 
 
-class AbstractPathTracer(abc.ABC):
+class AbstractPathSolver(abc.ABC):
+    """Base class of the path tracers and launchers."""
+
+    epsilon: float | None
+    """Tolerance of the ray-object intersection tests (None: ``10 * eps(float32)``)."""
+    hit_tol: float | None
+    """Tolerance of the blockage test on path segments (None: ``100 * eps(float32)``)."""
+
+
+class AbstractPathTracer(AbstractPathSolver):
     """Base class of the exact path tracers (candidates, then traced paths).
 
     Subclasses give :meth:`generate_path_candidates` and
@@ -659,7 +668,7 @@ class HybridPathTracer(_TracerOptions):
         return candidates, torch.zeros_like(candidates, dtype=torch.int32)
 
 
-class AbstractPathLauncher(abc.ABC):
+class AbstractPathLauncher(AbstractPathSolver):
     """Base class of the ray-launching solvers.
 
     Subclasses are frozen dataclasses with a ``max_dist`` field (the

@@ -43,7 +43,8 @@ def ray_intersect_triangle(
     h = _cross(ray_directions, edge_2)
     det = _dot(h, edge_1)
     # Parallel ray: 1/inf pushes u, v and t to 0 (and |det| fails the guard).
-    det_safe = torch.where(det == 0.0, torch.full_like(det, torch.inf), det)
+    parallel = det == 0.0
+    det_safe = torch.where(parallel, torch.full_like(det, torch.inf), det)
     inv_det = 1.0 / det_safe
     s = ray_origins - v0
     u = inv_det * _dot(s, h)
@@ -52,9 +53,19 @@ def ray_intersect_triangle(
     t = inv_det * _dot(q, edge_2)
 
     if smoothing_factor is not None:
+        # The sigmoid of inf * factor is a constant whose derivative in the
+        # factor would be 0 * inf: a parallel ray takes that constant,
+        # detached, and the sigmoid sees a finite stand-in there (the same
+        # forward values, a derivative of exactly 0).
+        det_arg = torch.where(parallel, torch.zeros_like(det), torch.abs(det) - epsilon)
+        det_conf = torch.where(
+            parallel,
+            smoothing_function(torch.full_like(det, torch.inf), smoothing_factor).detach(),
+            smoothing_function(det_arg, smoothing_factor),
+        )
         conds = torch.stack(
             (
-                smoothing_function(torch.abs(det_safe) - epsilon, smoothing_factor),
+                det_conf,
                 smoothing_function(u, smoothing_factor),
                 smoothing_function(1.0 - u, smoothing_factor),
                 smoothing_function(v, smoothing_factor),
@@ -74,3 +85,28 @@ def ray_intersect_triangle(
         & (t > epsilon)
     )
     return t, hit
+
+
+def triangle_contains_vertex_assuming_inside_same_plane(
+    triangle_vertices: torch.Tensor, vertex: torch.Tensor
+) -> torch.Tensor:
+    """Whether a vertex in the triangle's plane lies inside it (or on its edges): the same-side test.
+
+    ``triangle_vertices [*batch, 3, 3]`` and ``vertex [*batch, 3]`` broadcast.
+
+    >>> import torch
+    >>> tri = torch.tensor([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0]])
+    >>> triangle_contains_vertex_assuming_inside_same_plane(
+    ...     tri, torch.tensor([[0.2, 0.2, 0.0], [0.8, 0.8, 0.0]])
+    ... ).tolist()
+    [True, False]
+    """
+    p0 = triangle_vertices[..., 0, :]
+    p1 = triangle_vertices[..., 1, :]
+    p2 = triangle_vertices[..., 2, :]
+    normal = _cross(p1 - p0, p2 - p0)
+
+    def same_side(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return _dot(_cross(b - a, vertex - a), normal) >= 0.0
+
+    return same_side(p0, p1) & same_side(p1, p2) & same_side(p2, p0)

@@ -155,6 +155,9 @@ def test_interop_round_trip() -> None:
         "differt_tpu_torch.coverage",
         "differt_tpu_torch.parallel._sharding",
         "differt_tpu_torch.scenes",
+        "differt_tpu_torch.profiling",
+        "differt_tpu_torch.plotting._utils",
+        "differt_tpu_torch.plotting._core",
     ],
 )
 def test_doctests(name: str) -> None:

@@ -214,8 +214,20 @@ def test_iter_paths_and_conversions_match_jax(canyon, traced) -> None:
     back = as_np.torch(device="cpu")
     assert torch.equal(back.power, got.power) and torch.equal(back.mask, got.mask)
     assert set(got.asdict()) == set(want.asdict())
-    with pytest.raises(NotImplementedError, match="A12"):
-        got.plot_paths()
+    # plot_paths draws what the JAX package draws: one line a valid path, the same points.
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    drawn = [
+        [np.asarray(line.get_data_3d()) for line in fig.axes[0].lines]
+        for fig in (got.plot_paths(backend="matplotlib"), want.plot_paths(backend="matplotlib"))
+    ]
+    plt.close("all")
+    assert len(drawn[0]) == len(drawn[1]) == int(got.mask.sum()) > 0
+    for a, b in zip(*drawn, strict=True):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_sort_by_vertices_matches_by_points_among_equal_types(canyon, traced) -> None:

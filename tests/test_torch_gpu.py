@@ -744,3 +744,25 @@ def test_deepmimo_export_on_the_card_equals_the_plain_run(tmp_path, torch_backen
     assert float(torch.rad2deg(torch.abs(torch.polar(torch.ones_like(turn), turn) - 1.0)).max()) <= 0.01
     torch.testing.assert_close(got.delay[mask], want.delay[mask], rtol=1e-6, atol=0.0)
     assert bool(torch.isfinite(got.power[mask]).all())
+
+
+def test_sharded_power_map_on_a_world_of_one_equals_power_map() -> None:
+    """``make_device_mesh(1)`` makes a one-rank NCCL group on the card; its map is the single device's, bit for bit."""
+    import torch.distributed as dist
+
+    from differt_tpu_torch import coverage, parallel
+
+    device = cuda_or_skip()
+    scene = scenes.street_canyon_scene(device=device)
+    scene = Scene(transmitters=torch.tensor([[-30.0, 0.0, 20.0]], device=device), mesh=scene.mesh)
+    scene = scene.with_receivers_grid(9, 7)
+    mesh = parallel.make_device_mesh(1)
+    try:
+        assert dist.get_backend() == "nccl" and mesh.device == torch.device("cuda", torch.cuda.current_device())
+        launches = _trace.LAUNCHES
+        got = parallel.sharded_power_map(scene, 2.4e9, mesh, order=1)
+        assert _trace.LAUNCHES == launches + 1
+    finally:
+        dist.destroy_process_group()
+    want = coverage.power_map(scene, 2.4e9, order=1)
+    assert torch.equal(got, want) and float(want.max()) > 0.0

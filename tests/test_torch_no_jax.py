@@ -7,6 +7,8 @@ from pathlib import Path
 _PROGRAM = r"""
 import sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
+for backend in ("matplotlib", "plotly", "vispy"):  # a GPU host may have no plotting backend
+    sys.modules[backend] = None
 import torch
 torch.set_num_threads(1)
 import differt_tpu_torch
@@ -67,6 +69,19 @@ assert torch.equal(loaded.mesh.triangle_vertices, scene.mesh.triangle_vertices)
 loaded = Scene(transmitters=scene.transmitters, receivers=scene.receivers, mesh=loaded.mesh)
 channels = deepmimo.export(paths=[loaded.trace_paths(order=o) for o in (0, 1)], scene=loaded, frequency=2.4e9)
 assert channels.power.shape == (1, 64, 1 + loaded.mesh.num_triangles) and bool(torch.isfinite(channels.power[channels.mask]).all())
+import torch.distributed as dist
+from differt_tpu_torch import parallel, plotting, profiling
+mesh = parallel.make_device_mesh(1, device="cpu")
+sharded = parallel.sharded_power_map(scene, 2.4e9, mesh, order=1)
+dist.destroy_process_group()
+assert torch.equal(sharded, power)
+assert sorted(profiling.timeit(lambda: power.sum(), repeats=2)) == ["max", "mean", "min", "repeats"]
+try:
+    scene.plot(backend="matplotlib")
+except ImportError:
+    pass
+else:
+    raise AssertionError("drawing without matplotlib should raise ImportError")
 assert not any(name == "jax" or name.startswith(("jax.", "differt_tpu.")) for name in sys.modules if sys.modules[name] is not None)
 print("ok")
 """

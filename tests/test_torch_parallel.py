@@ -323,22 +323,3 @@ def test_placement_training_step_matches_jax_on_the_device_mesh(with_target: boo
         port, FREQUENCY, None, order=1, **placement_for(torch, fields), **UNIT_RATES
     )
     assert_step_matches(got, want, fields)
-
-
-def test_a_device_mesh_is_refused_naming_a11() -> None:
-    scene = box_scene()
-    port = to_torch_scene(scene)
-    kw = placement_for(torch, placement_fields(scene, (1,)))
-    step_kw = {k: v for k, v in kw.items() if k != "path_candidates"}
-    mesh = object()  # anything but None
-    with pytest.raises(NotImplementedError, match="A11"):
-        streamed_placement_step(port, FREQUENCY, mesh, **kw)
-    with pytest.raises(NotImplementedError, match="A11"):
-        streamed_placement_loss(port, FREQUENCY, mesh, **kw)
-    with pytest.raises(NotImplementedError, match="A11"):
-        placement_training_step(port, FREQUENCY, mesh, order=1, **step_kw)
-    with pytest.raises(NotImplementedError, match="A11"):
-        training_step(
-            port, FREQUENCY, mesh, order=1, eta_r=kw["eta_r"], conductivity=kw["conductivity"],
-            target_power=torch.zeros((1, 4, 6)),
-        )
