@@ -1,7 +1,7 @@
 """differt_tpu_torch: the PyTorch + CUDA port of differt_tpu, for NVIDIA Hopper.
 
-It covers four paths. Coverage: the coverage map of orders 0, 1 and 2,
-with hard or sigmoid-smoothed validity masks, isotropic or through an
+It covers four paths. Coverage: the coverage map of any order, with hard
+or sigmoid-smoothed validity masks, isotropic or through an
 antenna pattern (meshes and scenes, candidate decoding, image-method
 tracing with its checks, the slab-Fresnel Jones chain and chunked power
 maps). Hybrid tracing: visibility estimated by ray launching prunes the
@@ -20,10 +20,11 @@ constructors, candidates, the lattice, antennas, ``interop``) build on the
 card unless given ``device="cpu"``. Scenes load from disk (``io``: OBJ,
 with the native parser, PLY and Sionna XML; ``Scene.load_xml``) and
 traced paths export to DeepMIMO's per-path channels
-(``plugins.deepmimo.export``). The package never imports JAX.
+(``plugins.deepmimo.export``); ``treekit`` writes checkpoints that the
+JAX package reads, and reads its. The package never imports JAX.
 """
 
-from . import coverage, em, geometry, interop, io, native, ops, parallel, plugins, profiling, rt, scenes, utils
+from . import coverage, em, geometry, interop, io, native, ops, parallel, plugins, profiling, rt, scenes, treekit, utils
 
 __all__ = (
     "coverage",
@@ -38,5 +39,6 @@ __all__ = (
     "profiling",
     "rt",
     "scenes",
+    "treekit",
     "utils",
 )

@@ -1,7 +1,8 @@
 // Fused specular trace kernel for Hopper (sm_90a).
 //
 // Replaces the TPU kernel differt_tpu/ops/_pallas_trace.py::_trace_kernel
-// (driver _pallas_trace_specular_impl, entry pallas_trace_specular).
+// (driver _pallas_trace_specular_impl, entry pallas_trace_specular), which
+// is generic in the order.
 //
 // Per (TX, candidate, RX) path: the mirror images of the TX (forward), the
 // plane intersections back from the RX, the checks (inside one of the
@@ -15,23 +16,36 @@
 //
 // What bounds it on the H100: bytes. Each path writes (k+2)*12 bytes of
 // vertices and reads next to nothing (the candidate's mirrors and
-// triangles are shared by all receivers), about 180 flops a path, so at
-// 3.35 TB/s the store is the floor. At city scale nearly every path fails
-// the cheap checks; the few that survive walk the BVH, divergently.
+// triangles are shared by all receivers), about 180 flops a path at order
+// 2, so at 3.35 TB/s the store is the floor. At city scale nearly every
+// path fails the cheap checks; the few that survive walk the BVH,
+// divergently.
 //
 // The design:
 // - A block is one TX, kCandTile candidates (one warp each) and kRxTile
 //   receivers (one lane each). Its candidates' mirrors and triangles go to
 //   shared memory once, and one thread a candidate computes the TX's
 //   mirror images there, once per (TX, candidate) rather than once per path.
-// - Each path's chain of vertices stays in registers (every loop over it is
-//   unrolled) and is staged in shared memory, where a warp's paths form the
-//   contiguous run of the output that it then writes with 16-byte stores.
+// - Each path's chain of vertices is staged in shared memory, where a
+//   warp's paths form the contiguous run of the output that it then writes
+//   with 16-byte stores. Orders 1-4 are templates (KT = order): every loop
+//   over the chain is unrolled and the chain also stays in registers. Every
+//   higher order runs one instantiation (KT = 0) that takes the order as an
+//   argument: its loops are not unrolled and its chain lives in the staging
+//   buffer alone. Both do the same operations in the same order, so the
+//   bits do not depend on the instantiation.
 // - The paths that pass the checks are queued per block (__ballot_sync and
 //   a shared counter), and their segments are spread over the block's
 //   threads, so that whole warps walk the BVH for blockage instead of a
 //   live lane or two in 32. Only a block with a queued path stages the top
 //   of the tree into shared memory.
+// - Shared memory holds the top of the tree (16 KB), then per candidate its
+//   mirrors, triangles and TX images, per thread its path's vertices, and
+//   the queue: static arrays for a template order, one dynamic buffer sized
+//   for the order for the runtime one (trace_smem_bytes). With quads that is
+//   20,452 + 1,968 k bytes, so the orders a block can hold end at
+//   kMaxOrder = 107 (Hopper's 227 KB opt-in); above 48 KB (k >= 15) the
+//   launch opts in (cudaFuncSetAttribute).
 
 #include <cstdint>
 
@@ -43,26 +57,102 @@ constexpr int kRxTile = 32;   // Receivers of a block: one lane each.
 constexpr int kCandTile = 4;  // Candidates of a block: one warp each.
 constexpr int kTraceThreads = kRxTile * kCandTile;
 constexpr int kTraceTop = 511;  // Top nine levels of the tree: 16 KB of shared memory.
+constexpr int kTemplateOrders = 4;        // Orders 1-4 have their own instantiation.
+constexpr long long kSmemOptin = 232448;  // The most a block may opt into on sm_90 (227 KB).
+constexpr long long kSmemDefault = 49152;  // Above this a kernel must opt in.
 
-template <int K, int TPM>
+// Bytes of a block's shared memory at order k with tpm triangles a mirror.
+__host__ __device__ constexpr long long trace_smem_bytes(int k, int tpm) {
+  return 16LL * 2 * kTraceTop                              // s_top
+         + 4LL * kCandTile * (6 * k + 9 * tpm * k + 3 * k)  // s_mirror, s_tris, s_images
+         + 4LL * kTraceThreads * 3 * (k + 2)                // s_verts
+         + 4LL * (2 * kTraceThreads + 1);                   // s_queue, s_blocked, s_count
+}
+
+// The highest order whose quad layout fits the opt-in limit.
+constexpr int kMaxOrder = static_cast<int>(
+    (kSmemOptin - trace_smem_bytes(0, 2)) / (trace_smem_bytes(1, 2) - trace_smem_bytes(0, 2)));
+static_assert(trace_smem_bytes(kMaxOrder, 2) <= kSmemOptin, "kMaxOrder overflows shared memory");
+static_assert(trace_smem_bytes(kMaxOrder + 1, 2) > kSmemOptin, "kMaxOrder is not the largest");
+
+// A path's chain of k+2 vertices: in registers and the staging buffer for a
+// template order (KT > 0), in the staging buffer alone for the runtime order.
+template <int KT>
+struct Chain {
+  Vec3 v[KT + 2];
+  float* staged;
+  __device__ __forceinline__ void set(int l, Vec3 p) { v[l] = p; }
+  __device__ __forceinline__ Vec3 get(int l) const { return v[l]; }
+  __device__ __forceinline__ void stage() {
+#pragma unroll
+    for (int l = 0; l < KT + 2; ++l) {
+      staged[3 * l] = v[l].x;
+      staged[3 * l + 1] = v[l].y;
+      staged[3 * l + 2] = v[l].z;
+    }
+  }
+};
+
+template <>
+struct Chain<0> {
+  float* staged;
+  __device__ __forceinline__ void set(int l, Vec3 p) {
+    staged[3 * l] = p.x;
+    staged[3 * l + 1] = p.y;
+    staged[3 * l + 2] = p.z;
+  }
+  __device__ __forceinline__ Vec3 get(int l) const { return load3(staged + 3 * l); }
+  __device__ __forceinline__ void stage() {}
+};
+
+// KT: the order, or 0 for the runtime order `order` (KT > 0 ignores it).
+template <int KT, int TPM>
 __global__ void __launch_bounds__(kTraceThreads)
     trace_kernel(const float* __restrict__ tx, const float* __restrict__ rx,
                  const float* __restrict__ mirrors,    // [C][K][6]: vertex xyz, normal xyz
                  const float* __restrict__ cand_tris,  // [C][TPM*K][9]: v0, e1, e2
-                 Bvh bvh, int num_cand, int num_rx, long long block0, float eps, float hit_tol,
-                 float thresh, float min_len, float* __restrict__ verts,
+                 Bvh bvh, int order, int num_cand, int num_rx, long long block0, float eps,
+                 float hit_tol, float thresh, float min_len, float* __restrict__ verts,
                  unsigned char* __restrict__ mask) {
-  constexpr int kVerts = 3 * (K + 2);  // Floats of a path's vertices.
-  constexpr int kMirror = 6 * K;       // Floats of a candidate's mirrors.
-  constexpr int kTris = 9 * TPM * K;   // Floats of a candidate's triangles.
-  __shared__ float s_mirror[kCandTile * kMirror];
-  __shared__ float s_tris[kCandTile * kTris];
-  __shared__ float s_images[kCandTile * 3 * K];
-  __shared__ float s_verts[kTraceThreads * kVerts];
-  __shared__ int s_queue[kTraceThreads];
-  __shared__ int s_blocked[kTraceThreads];
-  __shared__ int s_count;
-  __shared__ float4 s_top[2 * kTraceTop];
+  const int K = KT > 0 ? KT : order;
+  const int kVerts = 3 * (K + 2);  // Floats of a path's vertices.
+  const int kMirror = 6 * K;       // Floats of a candidate's mirrors.
+  const int kTris = 9 * TPM * K;   // Floats of a candidate's triangles.
+  float4* s_top;
+  float *s_mirror, *s_tris, *s_images, *s_verts;
+  int *s_queue, *s_blocked, *s_count;
+  if constexpr (KT > 0) {
+    // A template order: static arrays, which ptxas sizes (and allocates
+    // registers for). Their order sets their layout, and with it the time
+    // of the order-1 tiles: keep the top of the tree last.
+    __shared__ float mirror_buf[kCandTile * 6 * KT];
+    __shared__ float tris_buf[kCandTile * 9 * TPM * KT];
+    __shared__ float images_buf[kCandTile * 3 * KT];
+    __shared__ float verts_buf[kTraceThreads * 3 * (KT + 2)];
+    __shared__ int queue_buf[kTraceThreads];
+    __shared__ int blocked_buf[kTraceThreads];
+    __shared__ int count_buf;
+    __shared__ float4 top[2 * kTraceTop];
+    s_top = top;
+    s_mirror = mirror_buf;
+    s_tris = tris_buf;
+    s_images = images_buf;
+    s_verts = verts_buf;
+    s_queue = queue_buf;
+    s_blocked = blocked_buf;
+    s_count = &count_buf;
+  } else {
+    // The runtime order: one dynamic buffer in the order of trace_smem_bytes.
+    extern __shared__ float4 smem[];
+    s_top = smem;
+    s_mirror = reinterpret_cast<float*>(smem + 2 * kTraceTop);
+    s_tris = s_mirror + kCandTile * kMirror;
+    s_images = s_tris + kCandTile * kTris;
+    s_verts = s_images + kCandTile * 3 * K;
+    s_queue = reinterpret_cast<int*>(s_verts + kTraceThreads * kVerts);
+    s_blocked = s_queue + kTraceThreads;
+    s_count = s_blocked + kTraceThreads;
+  }
 
   const int warp = threadIdx.x / kRxTile;
   const int lane = threadIdx.x % kRxTile;
@@ -83,7 +173,7 @@ __global__ void __launch_bounds__(kTraceThreads)
   for (int i = threadIdx.x; i < num_c * kTris; i += blockDim.x) {
     s_tris[i] = cand_tris[static_cast<long long>(c0) * kTris + i];
   }
-  if (threadIdx.x == 0) s_count = 0;
+  if (threadIdx.x == 0) *s_count = 0;
   s_blocked[threadIdx.x] = 0;
   __syncthreads();
 
@@ -108,7 +198,6 @@ __global__ void __launch_bounds__(kTraceThreads)
   __syncthreads();
 
   const bool live = warp < num_c && r < num_rx;
-  float* staged = s_verts + threadIdx.x * kVerts;
   bool geom = false;
   if (live) {
     const float* mir = s_mirror + warp * kMirror;
@@ -116,9 +205,10 @@ __global__ void __launch_bounds__(kTraceThreads)
     const Vec3 rx_v = load3(rx + 3 * r);
 
     // Backward pass: intersect toward the images, last mirror first.
-    Vec3 chain[K + 2];
-    chain[0] = tx_v;
-    chain[K + 1] = rx_v;
+    Chain<KT> chain;
+    chain.staged = s_verts + threadIdx.x * kVerts;
+    chain.set(0, tx_v);
+    chain.set(K + 1, rx_v);
     Vec3 point = rx_v;
     bool invalid = false;
 #pragma unroll
@@ -132,22 +222,18 @@ __global__ void __launch_bounds__(kTraceThreads)
       const float tt = vn / (parallel ? 1.0f : dn);
       invalid = invalid || (parallel && vn != 0.0f);
       point = {point.x + direction.x * tt, point.y + direction.y * tt, point.z + direction.z * tt};
-      chain[b + 1] = point;
+      chain.set(b + 1, point);
     }
-#pragma unroll
-    for (int l = 0; l < K + 2; ++l) {
-      staged[3 * l] = chain[l].x;
-      staged[3 * l + 1] = chain[l].y;
-      staged[3 * l + 2] = chain[l].z;
-    }
+    chain.stage();
 
     // Segment checks: finiteness and minimal squared length.
     bool finite = !invalid;
     bool seg_valid = true;
 #pragma unroll
     for (int s = 0; s <= K; ++s) {
-      const Vec3 d = sub(chain[s + 1], chain[s]);
-      finite = finite && finite3(chain[s]) && finite3(d);
+      const Vec3 p = chain.get(s);
+      const Vec3 d = sub(chain.get(s + 1), p);
+      finite = finite && finite3(p) && finite3(d);
       seg_valid = seg_valid && !(dot(d, d) < min_len);
     }
 
@@ -156,8 +242,8 @@ __global__ void __launch_bounds__(kTraceThreads)
     const float* tris = s_tris + warp * kTris;
 #pragma unroll
     for (int b = 0; b < K; ++b) {
-      const Vec3 o = chain[b];
-      const Vec3 d = sub(chain[b + 1], chain[b]);
+      const Vec3 o = chain.get(b);
+      const Vec3 d = sub(chain.get(b + 1), o);
       bool hit_any = false;
 #pragma unroll
       for (int j = 0; j < TPM; ++j) {
@@ -174,8 +260,8 @@ __global__ void __launch_bounds__(kTraceThreads)
     for (int b = 0; b < K; ++b) {
       const Vec3 mv = load3(mir + 6 * b);
       const Vec3 n = load3(mir + 6 * b + 3);
-      const float dot_prev = dot(sub(chain[b], mv), n);
-      const float dot_next = dot(sub(chain[b + 2], mv), n);
+      const float dot_prev = dot(sub(chain.get(b), mv), n);
+      const float dot_next = dot(sub(chain.get(b + 2), mv), n);
       same_side = same_side && (sign_of(dot_prev) == sign_of(dot_next));
     }
     geom = inside && same_side && seg_valid && finite;
@@ -184,7 +270,7 @@ __global__ void __launch_bounds__(kTraceThreads)
   // Queue the paths that passed the checks.
   const unsigned ballot = __ballot_sync(0xffffffffu, geom);
   int base = 0;
-  if (lane == 0 && ballot != 0u) base = atomicAdd(&s_count, __popc(ballot));
+  if (lane == 0 && ballot != 0u) base = atomicAdd(s_count, __popc(ballot));
   base = __shfl_sync(0xffffffffu, base, 0);
   if (geom) s_queue[base + __popc(ballot & ((1u << lane) - 1u))] = threadIdx.x;
   __syncthreads();
@@ -209,7 +295,7 @@ __global__ void __launch_bounds__(kTraceThreads)
 
   // Blockage of the queued paths, one segment a thread: the mask is an AND
   // of all checks, so a path already found blocked skips its other segments.
-  const int count = s_count;
+  const int count = *s_count;
   if (count > 0) {
     const int num_top = min(bvh.num_nodes, kTraceTop);
     stage_top(s_top, bvh.nodes, num_top);
@@ -232,12 +318,19 @@ __global__ void __launch_bounds__(kTraceThreads)
   }
 }
 
-template <int K, int TPM>
+template <int KT, int TPM>
 int launch(const float* tx, const float* rx, const float* mirrors, const float* cand_tris,
-           const Bvh& bvh, int num_tx, int num_cand, int num_rx, float eps, float hit_tol,
-           float thresh, float min_len, float* verts, unsigned char* mask, cudaStream_t stream) {
+           const Bvh& bvh, int order, int num_tx, int num_cand, int num_rx, float eps,
+           float hit_tol, float thresh, float min_len, float* verts, unsigned char* mask,
+           cudaStream_t stream) {
   if (reinterpret_cast<std::uintptr_t>(verts) % 16 != 0) {
     return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  const long long smem = KT > 0 ? 0 : trace_smem_bytes(order, TPM);
+  if (smem > kSmemDefault) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        trace_kernel<KT, TPM>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   const long long cand_blocks = (static_cast<long long>(num_cand) + kCandTile - 1) / kCandTile;
   const long long rx_blocks = (static_cast<long long>(num_rx) + kRxTile - 1) / kRxTile;
@@ -246,9 +339,9 @@ int launch(const float* tx, const float* rx, const float* mirrors, const float* 
   for (long long block0 = 0; block0 < blocks; block0 += 0x7fffffffLL) {
     const unsigned grid = static_cast<unsigned>(blocks - block0 < 0x7fffffffLL ? blocks - block0
                                                                                 : 0x7fffffffLL);
-    trace_kernel<K, TPM><<<grid, kTraceThreads, 0, stream>>>(tx, rx, mirrors, cand_tris, bvh,
-                                                              num_cand, num_rx, block0, eps,
-                                                              hit_tol, thresh, min_len, verts, mask);
+    trace_kernel<KT, TPM><<<grid, kTraceThreads, smem, stream>>>(
+        tx, rx, mirrors, cand_tris, bvh, order, num_cand, num_rx, block0, eps, hit_tol, thresh,
+        min_len, verts, mask);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -257,7 +350,10 @@ int launch(const float* tx, const float* rx, const float* mirrors, const float* 
 
 }  // namespace differt
 
-// Orders 1-4, with 1 (triangles) or 2 (quads) triangles per mirror.
+// The highest order the kernel takes (what one block's shared memory holds).
+extern "C" int differt_trace_max_order() { return differt::kMaxOrder; }
+
+// Orders 1 to kMaxOrder, with 1 (triangles) or 2 (quads) triangles per mirror.
 extern "C" int differt_trace(const float* tx, const float* rx, const float* mirrors,
                              const float* cand_tris, const float* nodes, const float* tris,
                              int order, int tris_per_mirror, int num_tx, int num_cand, int num_rx,
@@ -267,10 +363,12 @@ extern "C" int differt_trace(const float* tx, const float* rx, const float* mirr
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const differt::Bvh bvh{reinterpret_cast<const float4*>(nodes),
                          reinterpret_cast<const float4*>(tris), num_nodes, large_begin, num_large};
-#define DIFFERT_TRACE_CASE(K, TPM)                                                          \
-  if (order == K && tris_per_mirror == TPM)                                                 \
-    return differt::launch<K, TPM>(tx, rx, mirrors, cand_tris, bvh, num_tx, num_cand, num_rx, \
-                                   epsilon, hit_tol, thresh, min_len, verts, mask, s);
+  if (order < 1 || order > differt::kMaxOrder) return static_cast<int>(cudaErrorInvalidValue);
+  const int kt = order <= differt::kTemplateOrders ? order : 0;
+#define DIFFERT_TRACE_CASE(KT, TPM)                                                            \
+  if (kt == KT && tris_per_mirror == TPM)                                                      \
+    return differt::launch<KT, TPM>(tx, rx, mirrors, cand_tris, bvh, order, num_tx, num_cand, \
+                                    num_rx, epsilon, hit_tol, thresh, min_len, verts, mask, s);
   DIFFERT_TRACE_CASE(1, 1)
   DIFFERT_TRACE_CASE(1, 2)
   DIFFERT_TRACE_CASE(2, 1)
@@ -279,6 +377,8 @@ extern "C" int differt_trace(const float* tx, const float* rx, const float* mirr
   DIFFERT_TRACE_CASE(3, 2)
   DIFFERT_TRACE_CASE(4, 1)
   DIFFERT_TRACE_CASE(4, 2)
+  DIFFERT_TRACE_CASE(0, 1)
+  DIFFERT_TRACE_CASE(0, 2)
 #undef DIFFERT_TRACE_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -44,6 +44,7 @@ _SIGNATURES = {
     "differt_anyhit": (_P,) * 5 + (_I,) * 6 + (_F, _P, _P, _P),
     "differt_closest": (_P,) * 4 + (_I,) * 4 + (_F, _P, _P, _P),
     "differt_trace": (_P,) * 6 + (_I,) * 8 + (_F,) * 4 + (_P, _P, _P),
+    "differt_trace_max_order": (),
 }
 
 

@@ -10,9 +10,10 @@ cheap checks, so the few that survive walk the mesh's BVH for blockage.
 The kernel tiles (TX, candidates, receivers), computes each candidate's
 TX images once per block, stages the vertices in shared memory for
 16-byte stores, and queues the surviving paths' segments so that whole
-warps walk the BVH (see the kernel's header note). The VMEM-driven tile
-pickers of the TPU kernel (``_pick_tile_t``, ``_pick_c_tile``) have no
-counterpart here.
+warps walk the BVH (see the kernel's header note). It takes every order
+from 1 to :data:`MAX_ORDER`, the cap its shared memory sets, as the TPU
+kernel's VMEM budget sets its own. The VMEM-driven tile pickers of the TPU
+kernel (``_pick_tile_t``, ``_pick_c_tile``) have no counterpart here.
 
 Gradients: :func:`trace_specular_cuda` goes through a
 ``torch.autograd.Function`` (the counterpart of the JAX package's custom
@@ -32,8 +33,14 @@ from ..geometry._vectors import _dot
 from ._build import check_launch, load_kernels
 from ._rt import _check, checked_bvh, ray_intersect_any_triangle_reference
 
-MAX_ORDER = 4
-"""Highest order the CUDA kernel is compiled for (``csrc/trace.cu``)."""
+MAX_ORDER = 107
+"""Highest order the CUDA kernel takes (``csrc/trace.cu``, ``kMaxOrder``).
+
+Orders 1-4 have their own instantiations, every higher order one that takes
+the order as an argument. The cap is what one block's shared memory holds:
+20,452 + 1,968 k bytes with quads (the top of the tree, then the per-order
+arrays), at most Hopper's 227 KB opt-in (232,448 bytes).
+"""
 
 LAUNCHES = 0
 """Launches of the CUDA trace kernel in this process."""
@@ -210,8 +217,12 @@ def trace_specular_cuda(
 
     The vertices are differentiable with respect to the TX, the RX and the
     mirrors' vertices and normals (:class:`_TraceSpecular`); the candidate
-    triangles, the mesh and the mask carry no gradient.
+    triangles, the mesh and the mask carry no gradient. Orders above
+    :data:`MAX_ORDER` raise on every device.
     """
+    if not 1 <= order <= MAX_ORDER:
+        msg = f"The trace kernel takes orders 1 to {MAX_ORDER}, not {order}."
+        raise ValueError(msg)
     return _TraceSpecular.apply(
         tx_vertices,
         rx_vertices,
@@ -288,9 +299,6 @@ def _launch_checked(
     device = tx_vertices.device
     if device.type != "cuda":
         msg = f"The trace kernel runs on CUDA tensors, not on {device}."
-        raise ValueError(msg)
-    if not 1 <= order <= MAX_ORDER:
-        msg = f"The trace kernel is compiled for orders 1 to {MAX_ORDER}, not {order}."
         raise ValueError(msg)
     num_tx, num_rx = tx_vertices.shape[0], rx_vertices.shape[0]
     num_cand = mirror_vertices.shape[0]

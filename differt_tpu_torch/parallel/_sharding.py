@@ -28,6 +28,7 @@ from ..coverage import _coverage_tile, _resolve_materials, received_power
 from ..em import z_0
 from ..geometry import Scene, TracedPaths, generate_path_candidates
 from ..rt._solvers import trace_path_candidates as _trace_path_candidates
+from ..treekit import tree_leaves, tree_rebuild
 
 _POWER_FLOOR = 1e-30
 """Floor of the power under the logarithm: pixels below it sit at -300 dB and pass no gradient."""
@@ -193,38 +194,8 @@ class _Replicate(torch.autograd.Function):
         return None, *out
 
 
-def _tensors(tree) -> list[torch.Tensor]:
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        return [t for f in dataclasses.fields(tree) if f.init for t in _tensors(getattr(tree, f.name))]
-    if isinstance(tree, (list, tuple)):
-        return [t for item in tree for t in _tensors(item)]
-    if isinstance(tree, dict):
-        return [t for item in tree.values() for t in _tensors(item)]
-    return []
-
-
-def _rebuild(tree, new: Iterator[torch.Tensor]):
-    """``tree`` with its tensors taken in order from ``new``; a part whose tensors all come back unchanged is kept as it was (a mesh with its cached BVH)."""
-    if isinstance(tree, torch.Tensor):
-        return next(new)
-    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        names = [f.name for f in dataclasses.fields(tree) if f.init]
-        old = [getattr(tree, name) for name in names]
-        items = [_rebuild(item, new) for item in old]
-        if all(a is b for a, b in zip(items, old, strict=True)):
-            return tree
-        return dataclasses.replace(tree, **dict(zip(names, items, strict=True)))
-    if isinstance(tree, (list, tuple, dict)):
-        old = list(tree.values() if isinstance(tree, dict) else tree)
-        items = [_rebuild(item, new) for item in old]
-        if all(a is b for a, b in zip(items, old, strict=True)):
-            return tree
-        if isinstance(tree, dict):
-            return dict(zip(tree, items, strict=True))
-        return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
-    return tree
+def _is_tensor(x) -> bool:
+    return isinstance(x, torch.Tensor)
 
 
 def replicate(tree, mesh: DeviceMesh):
@@ -238,14 +209,14 @@ def replicate(tree, mesh: DeviceMesh):
     <differt_tpu_torch.geometry.Mesh>` there keeps its cached BVH.
     """
     _member(mesh)
-    tensors = _tensors(tree)
+    tensors = tree_leaves(tree, _is_tensor)
     grads = [i for i, x in enumerate(tensors) if x.requires_grad]
     out = [x if x.requires_grad else _broadcast(x, mesh) for x in tensors]
     if grads:
         with_grad = _Replicate.apply(mesh, *(tensors[i] for i in grads))
         for i, x in zip(grads, with_grad, strict=True):
             out[i] = x
-    return _rebuild(tree, iter(out))
+    return tree_rebuild(tree, iter(out), _is_tensor)
 
 
 class _Gather(torch.autograd.Function):
@@ -301,7 +272,8 @@ def sharded_trace_paths(
     if scene.mesh.assume_quads:
         candidates = 2 * candidates
     if not shard_candidates:
-        scene = _rebuild(scene, (x.to(mesh.device) for x in _tensors(scene)))
+        moved = (x.to(mesh.device) for x in tree_leaves(scene, _is_tensor))
+        scene = tree_rebuild(scene, moved, _is_tensor)
         return _trace_path_candidates(
             scene.mesh,
             scene.transmitters.reshape(-1, 3),

@@ -85,10 +85,11 @@ def trace_path_candidates(
     ``tx_vertices [Ntx, 3]``, ``rx_vertices [Nrx, 3]``, ``path_candidates
     [C, order]`` primitive indices. Returns paths of batch shape
     ``[Ntx, Nrx, C]``. ``megakernel=None`` picks the fused trace kernel when
-    the backend resolves to ``"cuda"`` (by default: CUDA tensors),
-    ``order >= 1`` and the masks are hard; ``False`` forces the unfused
-    pipeline; ``True`` forces the fused kernel's contract (its plain version
-    on CPU).
+    the backend resolves to ``"cuda"`` (by default: CUDA tensors), the
+    order is 1 to the kernel's cap (``ops._trace.MAX_ORDER``) and the masks
+    are hard; ``False`` forces the unfused pipeline; ``True`` forces the
+    fused kernel's contract (its plain version on CPU), and raises above
+    the cap.
 
     With a ``smoothing_factor`` each of the five checks is a sigmoid
     confidence and the mask their minimum, a float held against
@@ -115,11 +116,13 @@ def trace_path_candidates(
 
     if megakernel is None:
         from ..ops import get_backend
+        from ..ops._trace import MAX_ORDER
 
+        # Orders above the kernel's cap go to the unfused pipeline.
         megakernel = (
             get_backend(tx_vertices.device) == "cuda"
             and not smooth
-            and order >= 1
+            and 1 <= order <= MAX_ORDER
             and num_candidates > 0
         )
     if megakernel:
@@ -519,7 +522,7 @@ class _TracerOptions(AbstractPathTracer):
     chunk_size: int | None = None
     """Candidates per chunk of ``Scene.trace_paths`` (None: all at once)."""
     megakernel: bool | None = None
-    """Force the fused trace kernel on or off (None: on for the "cuda" backend, order >= 1, hard checks)."""
+    """Force the fused trace kernel on or off (None: on for the "cuda" backend, orders 1 to ``ops._trace.MAX_ORDER``, hard checks)."""
 
     def trace_path_candidates(self, scene, path_candidates, interaction_types) -> TracedPaths:
         """Trace ``[C, order]`` candidates (or a tuple of them, one per order, merged by :func:`concatenate_paths`)."""

@@ -19,7 +19,15 @@ from differt_tpu_torch.ops import _build, _bvh, _closest, _rt, _trace
 from differt_tpu_torch.rt import first_triangle_hit_by_ray, ray_intersect_triangle, trace_path_candidates
 from differt_tpu_torch.rt._solvers import candidate_geometry
 
-from .torch_parity import EPSILON, HIT_TOL, cuda_or_skip, random_segments, triangle_mask
+from .torch_parity import (
+    EPSILON,
+    HIT_TOL,
+    canyon_candidates,
+    cuda_or_skip,
+    random_segments,
+    street_chains,
+    triangle_mask,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -116,7 +124,21 @@ def test_anyhit_split_is_checked() -> None:
             _rt.launch_anyhit(o, d, thresh, bvh, EPSILON, out, split=split)
 
 
-@pytest.mark.parametrize(("order", "quads"), [(1, False), (2, False), (2, True)])
+# Orders 1-4 run their templates, 5 and 6 the runtime-order instantiation.
+TRACE_ORDERS = [(1, False), (2, False), (2, True), (3, False), (4, False), (5, False), (5, True), (6, False)]
+
+
+def _candidates(mesh, order: int, quads: bool, device) -> torch.Tensor:
+    """Every candidate up to order 2; above it the street chains and a strided shard.
+    Triangle indices (a quad's first triangle), as ``Scene.trace_paths`` takes them."""
+    if order <= 2:
+        candidates = generate_path_candidates(mesh.num_primitives, order, device=device)
+    else:
+        candidates = torch.from_numpy(canyon_candidates(order, quads, shard=64)).to(device)
+    return candidates * (2 if quads else 1)
+
+
+@pytest.mark.parametrize(("order", "quads"), TRACE_ORDERS)
 def test_trace_kernel_matches_reference(order: int, quads: bool) -> None:
     device = cuda_or_skip()
     mesh = scenes.street_canyon_scene(device=device).mesh.set_assume_quads(quads)
@@ -124,15 +146,13 @@ def test_trace_kernel_matches_reference(order: int, quads: bool) -> None:
         transmitters=torch.tensor([[-30.0, 0.0, 20.0], [10.0, 3.0, 5.0]], device=device),
         mesh=mesh,
     ).with_receivers_grid(16, 16)
+    candidates = _candidates(mesh, order, quads, device)
     launches = _trace.LAUNCHES
-    got = scene.trace_paths(order=order)  # megakernel=None picks the kernel on CUDA
+    got = scene.trace_paths(path_candidates=candidates)  # megakernel=None picks the kernel on CUDA
     torch.cuda.synchronize()
     assert _trace.LAUNCHES == launches + 1
 
-    candidates = generate_path_candidates(mesh.num_primitives, order, device=device)
-    _, tris, mirror_vertices, mirror_normals = candidate_geometry(
-        mesh, candidates * (2 if quads else 1)
-    )
+    _, tris, mirror_vertices, mirror_normals = candidate_geometry(mesh, candidates)
     args = (
         scene.transmitters.reshape(-1, 3),
         scene.receivers.reshape(-1, 3),
@@ -169,9 +189,7 @@ def _length_gradients(scene: Scene, order: int, megakernel):
     rx = scene.receivers.reshape(-1, 3).clone().requires_grad_()
     vertices = scene.mesh.vertices.clone().requires_grad_()
     mesh = dataclasses.replace(scene.mesh, vertices=vertices)
-    candidates = generate_path_candidates(mesh.num_primitives, order, device=tx.device)
-    if mesh.assume_quads:
-        candidates = 2 * candidates
+    candidates = _candidates(mesh, order, mesh.assume_quads, tx.device)
     paths = trace_path_candidates(mesh, tx, rx, candidates, megakernel=megakernel)
     seg = paths.vertices[..., 1:, :] - paths.vertices[..., :-1, :]
     lengths = torch.sqrt((seg * seg).sum(dim=-1) + 1e-12).sum(dim=-1)
@@ -179,7 +197,7 @@ def _length_gradients(scene: Scene, order: int, megakernel):
     return total, torch.autograd.grad(total, (tx, rx, vertices)), paths
 
 
-@pytest.mark.parametrize(("order", "quads"), [(1, False), (2, False), (2, True)])
+@pytest.mark.parametrize(("order", "quads"), TRACE_ORDERS)
 def test_trace_function_gradients_on_the_card(order: int, quads: bool, torch_backend) -> None:
     # The canyon's walls are parallel mirrors: at order 2 some candidates'
     # paths are impossible, and none of that may reach a gradient.
@@ -202,6 +220,53 @@ def test_trace_function_gradients_on_the_card(order: int, quads: bool, torch_bac
     for got, want in zip(fused, unfused):
         assert torch.isfinite(got).all() and got.abs().max() > 0
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+def test_trace_kernel_takes_every_order_to_its_cap() -> None:
+    # The library's cap is the wrapper's; at the cap, on quads (the layout that
+    # binds), the chains between the canyon's street walls reach the street.
+    device = cuda_or_skip()
+    assert _build.load_kernels().differt_trace_max_order() == _trace.MAX_ORDER
+    mesh = scenes.street_canyon_scene(device=device).mesh.set_assume_quads()
+    tx = torch.tensor([[-30.0, 0.0, 20.0]], device=device)
+    rx = torch.tensor([[x, y, 1.5] for x in (-20.0, 0.0, 25.0) for y in (-4.0, 5.0)], device=device)
+    kw = {"epsilon": EPSILON, "hit_tol": HIT_TOL, "min_len": EPSILON}
+    for order in (_trace.MAX_ORDER, _trace.MAX_ORDER + 1):
+        candidates = 2 * torch.from_numpy(street_chains(order, quads=True)).to(device)
+        _, tris, mirror_vertices, mirror_normals = candidate_geometry(mesh, candidates)
+        args = (tx, rx, mirror_vertices, mirror_normals, tris, mesh.triangle_vertices.contiguous(), None)
+        if order > _trace.MAX_ORDER:
+            with pytest.raises(ValueError, match=f"not {order}"):
+                trace_path_candidates(mesh, tx, rx, candidates, megakernel=True)
+            continue
+        launches = _trace.LAUNCHES
+        verts, mask = _trace.trace_specular_cuda(*args, order=order, **kw)
+        torch.cuda.synchronize()
+        assert _trace.LAUNCHES == launches + 1
+        want_verts, want_mask = _trace.trace_specular_reference(*args, order=order, **kw)
+        assert torch.equal(mask, want_mask) and int(mask.sum()) > 0
+        torch.testing.assert_close(verts[mask], want_verts[mask], atol=1e-4, rtol=0)
+
+
+def test_auto_rule_above_the_cap_takes_the_unfused_pipeline(monkeypatch) -> None:
+    # Order 5 on the canyon with megakernel=None: the kernel while its cap
+    # allows, the unfused pipeline (anyhit.cu) above it; both equal megakernel=False.
+    device = cuda_or_skip()
+    scene = Scene(
+        transmitters=torch.tensor([[-30.0, 0.0, 20.0]], device=device),
+        receivers=torch.tensor([[x, 3.0, 1.5] for x in (-35.0, -10.0, 15.0, 40.0)], device=device),
+        mesh=scenes.street_canyon_scene(device=device).mesh,
+    )
+    want = scene.trace_paths(order=5, megakernel=False)
+    assert want.num_valid_paths > 0
+    for cap, kernel in ((_trace.MAX_ORDER, _trace), (4, _rt)):
+        monkeypatch.setattr(_trace, "MAX_ORDER", cap)
+        launches = kernel.LAUNCHES
+        got = scene.trace_paths(order=5)
+        torch.cuda.synchronize()
+        assert kernel.LAUNCHES == launches + 1
+        assert torch.equal(got.mask, want.mask)
+        torch.testing.assert_close(got.vertices[got.mask], want.vertices[want.mask], atol=1e-4, rtol=0)
 
 
 def test_unfused_pipeline_takes_a_tx_that_requires_a_gradient() -> None:

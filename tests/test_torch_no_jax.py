@@ -82,6 +82,22 @@ except ImportError:
     pass
 else:
     raise AssertionError("drawing without matplotlib should raise ImportError")
+import importlib.util
+from differt_tpu_torch import treekit
+with tempfile.TemporaryDirectory() as folder:
+    treekit.tree_serialise_leaves(Path(folder) / "ckpt", scene)
+    back = treekit.tree_deserialise_leaves(Path(folder) / "ckpt", scene)
+assert torch.equal(back.mesh.vertices, scene.mesh.vertices) and back.mesh._bvh is None
+for name, kw in (
+    ("torch_two_ray_model", {"distances": (30.0,)}),
+    ("torch_coverage_map", {"grid": 4, "steps": 1}),
+    ("torch_propagation_mechanisms", {}),
+    ("torch_multichip_sharding", {"grid": 4, "steps": 1}),
+):
+    spec = importlib.util.spec_from_file_location(name, Path("examples") / f"{name}.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    example.main(device="cpu", **kw)
 assert not any(name == "jax" or name.startswith(("jax.", "differt_tpu.")) for name in sys.modules if sys.modules[name] is not None)
 print("ok")
 """

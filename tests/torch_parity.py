@@ -5,6 +5,8 @@ numpy arrays (``differt_tpu_torch.interop``), and random inputs come from
 ``numpy.random.default_rng``.
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -137,6 +139,37 @@ def random_segments(bbox: np.ndarray, num: int, seed: int):
 def triangle_mask(num: int, seed: int) -> np.ndarray:
     """A random active-triangle mask holding about 70% of the triangles."""
     return np.random.default_rng(seed).random(num) >= 0.3
+
+
+def street_chains(order: int, quads: bool = False) -> np.ndarray:
+    """The street canyon's chains that alternate between its two street-facing walls.
+
+    Primitive indices: triangles 0, 1 (y = -10) and 16, 17 (y = +10), or
+    quads 0 and 8. They reach every receiver in the street at every order.
+    """
+    walls = ((0,), (8,)) if quads else ((0, 1), (16, 17))
+    return np.array(
+        [
+            row
+            for first in (0, 1)
+            for row in itertools.product(*(walls[(first + b) % 2] for b in range(order)))
+        ],
+        dtype=np.int64,
+    ).reshape(-1, order)
+
+
+def canyon_candidates(order: int, quads: bool = False, shard: int = 32) -> np.ndarray:
+    """The canyon's street chains, then ``shard`` candidates in groups of 8 strided over the whole range."""
+    from differt_tpu_torch.geometry import generate_path_candidates
+
+    num = 13 if quads else 26
+    step = num * (num - 1) ** (order - 1) // (shard // 8)
+    parts = [street_chains(order, quads)]
+    parts += [
+        generate_path_candidates(num, order, start=g * step, size=8, device="cpu").numpy()
+        for g in range(shard // 8)
+    ]
+    return np.concatenate(parts)
 
 
 def cuda_or_skip() -> torch.device:
