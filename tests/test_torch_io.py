@@ -334,6 +334,7 @@ def test_street_canyon_round_trip_traces_the_same_paths(tmp_path) -> None:
         "differt_tpu_torch.io._ply",
         "differt_tpu_torch.io._xml",
         "differt_tpu_torch.io._export",
+        "differt_tpu_torch.io._sionna",
         "differt_tpu_torch.plugins.deepmimo",
         "differt_tpu_torch.geometry._paths",
     ],

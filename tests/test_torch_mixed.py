@@ -19,7 +19,9 @@ knife edge and the corridor of ``tests/test_mixed.py`` and
 """
 
 import dataclasses
+import doctest
 import functools
+import importlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -184,3 +186,8 @@ def test_mixed_amplitudes_check_the_signature_length() -> None:
     paths = scene.trace_mixed_paths([R, D])
     with pytest.raises(ValueError, match="2"):
         mixed_amplitudes(paths, scene, FREQUENCY, **_edges_info(scene.mesh), eta_r=[5.24], conductivity=[0.1], types=(R,))
+
+
+def test_doctests() -> None:
+    result = doctest.testmod(importlib.import_module("differt_tpu_torch.rt._mixed"), optionflags=doctest.ELLIPSIS)
+    assert result.attempted > 0 and result.failed == 0

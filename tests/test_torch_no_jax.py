@@ -66,6 +66,17 @@ with tempfile.TemporaryDirectory() as folder:
     assert io.load_obj(obj, device="cpu").num_triangles == 2
     loaded = Scene.load_xml(io.export_scene_xml(scene.mesh, folder), device="cpu")
 assert torch.equal(loaded.mesh.triangle_vertices, scene.mesh.triangle_vertices)
+import contextlib
+import io as text_io
+from differt_tpu_torch.io import _sionna
+from differt_tpu_torch.io.__main__ import main as sionna_main
+with tempfile.TemporaryDirectory() as folder:
+    (Path(folder) / "demo").mkdir()
+    (Path(folder) / "demo" / "demo.xml").write_text("<scene version='2.1.0'></scene>")
+    printed = text_io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        assert sionna_main(["list", "--folder", folder]) == 0
+    assert printed.getvalue() == "demo\n" and _sionna.list_sionna_scenes(folder) == ["demo"]
 loaded = Scene(transmitters=scene.transmitters, receivers=scene.receivers, mesh=loaded.mesh)
 channels = deepmimo.export(paths=[loaded.trace_paths(order=o) for o in (0, 1)], scene=loaded, frequency=2.4e9)
 assert channels.power.shape == (1, 64, 1 + loaded.mesh.num_triangles) and bool(torch.isfinite(channels.power[channels.mask]).all())
