@@ -17,6 +17,7 @@ import torch
 from .em import c, epsilon_0, materials, z_0
 from .em._fresnel import slab_reflection_coefficients
 from .geometry import Scene, TracedPaths
+from .profiling import annotate
 from .utils import dot3, gather_columns, normalize3, safe_divide, sp_directions3, spherical3
 
 
@@ -48,119 +49,120 @@ def complex_amplitudes(
     first segment's spherical frame replace the unit vertical polarization
     of an isotropic antenna.
     """
-    device = paths.vertices.device
-    frequency = torch.as_tensor(frequency, dtype=torch.float32, device=device)
-    eta_r = torch.as_tensor(eta_r, dtype=torch.float32, device=device)
-    conductivity = torch.as_tensor(conductivity, dtype=torch.float32, device=device)
-    omega = 2.0 * math.pi * frequency
-    n_complex = torch.sqrt(eta_r - 1j * conductivity / (omega * epsilon_0))
-    wavelength = c / frequency
-    if thickness is None:
-        thickness = torch.full_like(eta_r, -1.0)
-    else:
-        thickness = torch.as_tensor(thickness, dtype=torch.float32, device=device)
-
-    num_points = paths.vertices.shape[-2]
-    order = paths.order
-    # [*batch, L, 3] -> [L, 3, *batch]: one tensor per (point, axis).
-    v_soa = torch.movedim(paths.vertices, (-2, -1), (0, 1))
-    diffs = v_soa[1:] - v_soa[:-1]
-    seg_ok = (diffs * diffs).sum(dim=1).amin(dim=0) > 1e-12
-    geom_finite = torch.isfinite(v_soa).all(dim=1).all(dim=0) & seg_ok
-    pts = [
-        [
-            torch.where(geom_finite, v_soa[l, axis], float(l) if axis == 0 else 0.0)
-            for axis in range(3)
-        ]
-        for l in range(num_points)
-    ]
-
-    k_hats, s_lens = [], []
-    for i in range(num_points - 1):
-        k_hat, s_len = normalize3(tuple(pts[i + 1][ax] - pts[i][ax] for ax in range(3)))
-        k_hats.append(k_hat)
-        s_lens.append(s_len)
-
-    if tx_pattern is None:
-        e_theta = torch.ones(paths.mask.shape, dtype=torch.complex64, device=device)
-        e_phi = torch.zeros(paths.mask.shape, dtype=torch.complex64, device=device)
-    else:
-        k0 = k_hats[0]
-        r_eval = tx_pattern.center + torch.stack(k0, dim=-1)
-        s_vec, p_vec = tx_pattern.polarization_vectors(r_eval)
-        e_vec = tuple(s_vec[..., axis] + p_vec[..., axis] for axis in range(3))
-        th0, ph0 = spherical3(k0)
-        e_theta = dot3(e_vec, th0).to(torch.complex64)
-        e_phi = dot3(e_vec, ph0).to(torch.complex64)
-
-    if order > 0:
-        mesh = scene.mesh
-        normals_t = mesh.normals
-        is_reflection = paths.interaction_types == 0
-        num_tri = normals_t.shape[0]
-        if mesh.face_materials is None:
-            n_r_tri = n_complex[0].expand(num_tri)
-            thick_tri = thickness[0].expand(num_tri)
+    with annotate("em"):
+        device = paths.vertices.device
+        frequency = torch.as_tensor(frequency, dtype=torch.float32, device=device)
+        eta_r = torch.as_tensor(eta_r, dtype=torch.float32, device=device)
+        conductivity = torch.as_tensor(conductivity, dtype=torch.float32, device=device)
+        omega = 2.0 * math.pi * frequency
+        n_complex = torch.sqrt(eta_r - 1j * conductivity / (omega * epsilon_0))
+        wavelength = c / frequency
+        if thickness is None:
+            thickness = torch.full_like(eta_r, -1.0)
         else:
-            # Clamped gathers: a face material beyond the supplied table
-            # takes its last entry instead of poisoning the pixel sum.
-            mats = mesh.face_materials.clamp(0, n_complex.shape[0] - 1)
-            n_r_tri = n_complex[mats]
-            thick_tri = thickness[mats]
-        table = torch.cat(
-            (
-                normals_t.to(torch.float32),
-                n_r_tri.real[:, None],
-                n_r_tri.imag[:, None],
-                thick_tri[:, None],
-            ),
-            dim=-1,
-        )
+            thickness = torch.as_tensor(thickness, dtype=torch.float32, device=device)
 
-        for b in range(order):
-            # A bounce padded by `pad_order` (object -1) reads row 0 and is
-            # passed over below (its type is -1).
-            cols = gather_columns(table, paths.objects[..., b + 1].clamp(min=0))
-            normal = (cols[0], cols[1], cols[2])
-            n_r_val = torch.complex(cols[3], cols[4])
-            thickness_val = cols[5]
+        num_points = paths.vertices.shape[-2]
+        order = paths.order
+        # [*batch, L, 3] -> [L, 3, *batch]: one tensor per (point, axis).
+        v_soa = torch.movedim(paths.vertices, (-2, -1), (0, 1))
+        diffs = v_soa[1:] - v_soa[:-1]
+        seg_ok = (diffs * diffs).sum(dim=1).amin(dim=0) > 1e-12
+        geom_finite = torch.isfinite(v_soa).all(dim=1).all(dim=0) & seg_ok
+        pts = [
+            [
+                torch.where(geom_finite, v_soa[l, axis], float(l) if axis == 0 else 0.0)
+                for axis in range(3)
+            ]
+            for l in range(num_points)
+        ]
 
-            k_in, k_out = k_hats[b], k_hats[b + 1]
-            th_in, ph_in = spherical3(k_in)
-            th_out, ph_out = spherical3(k_out)
-            (e_i_s, e_i_p), (e_r_s, e_r_p) = sp_directions3(k_in, k_out, normal)
-            cos_theta_i = -dot3(normal, k_in)
-            r_s, r_p = slab_reflection_coefficients(
-                n_r_val, cos_theta_i, thickness_val, wavelength
+        k_hats, s_lens = [], []
+        for i in range(num_points - 1):
+            k_hat, s_len = normalize3(tuple(pts[i + 1][ax] - pts[i][ax] for ax in range(3)))
+            k_hats.append(k_hat)
+            s_lens.append(s_len)
+
+        if tx_pattern is None:
+            e_theta = torch.ones(paths.mask.shape, dtype=torch.complex64, device=device)
+            e_phi = torch.zeros(paths.mask.shape, dtype=torch.complex64, device=device)
+        else:
+            k0 = k_hats[0]
+            r_eval = tx_pattern.center + torch.stack(k0, dim=-1)
+            s_vec, p_vec = tx_pattern.polarization_vectors(r_eval)
+            e_vec = tuple(s_vec[..., axis] + p_vec[..., axis] for axis in range(3))
+            th0, ph0 = spherical3(k0)
+            e_theta = dot3(e_vec, th0).to(torch.complex64)
+            e_phi = dot3(e_vec, ph0).to(torch.complex64)
+
+        if order > 0:
+            mesh = scene.mesh
+            normals_t = mesh.normals
+            is_reflection = paths.interaction_types == 0
+            num_tri = normals_t.shape[0]
+            if mesh.face_materials is None:
+                n_r_tri = n_complex[0].expand(num_tri)
+                thick_tri = thickness[0].expand(num_tri)
+            else:
+                # Clamped gathers: a face material beyond the supplied table
+                # takes its last entry instead of poisoning the pixel sum.
+                mats = mesh.face_materials.clamp(0, n_complex.shape[0] - 1)
+                n_r_tri = n_complex[mats]
+                thick_tri = thickness[mats]
+            table = torch.cat(
+                (
+                    normals_t.to(torch.float32),
+                    n_r_tri.real[:, None],
+                    n_r_tri.imag[:, None],
+                    thick_tri[:, None],
+                ),
+                dim=-1,
             )
 
-            # (theta, phi) -> local (s, p), scale, -> next (theta, phi).
-            f_s = r_s * (dot3(e_i_s, th_in) * e_theta + dot3(e_i_s, ph_in) * e_phi)
-            f_p = r_p * (dot3(e_i_p, th_in) * e_theta + dot3(e_i_p, ph_in) * e_phi)
-            new_theta = dot3(th_out, e_r_s) * f_s + dot3(th_out, e_r_p) * f_p
-            new_phi = dot3(ph_out, e_r_s) * f_s + dot3(ph_out, e_r_p) * f_p
+            for b in range(order):
+                # A bounce padded by `pad_order` (object -1) reads row 0 and is
+                # passed over below (its type is -1).
+                cols = gather_columns(table, paths.objects[..., b + 1].clamp(min=0))
+                normal = (cols[0], cols[1], cols[2])
+                n_r_val = torch.complex(cols[3], cols[4])
+                thickness_val = cols[5]
 
-            keep = is_reflection[..., b]
-            e_theta = torch.where(keep, new_theta, e_theta)
-            e_phi = torch.where(keep, new_phi, e_phi)
+                k_in, k_out = k_hats[b], k_hats[b + 1]
+                th_in, ph_in = spherical3(k_in)
+                th_out, ph_out = spherical3(k_out)
+                (e_i_s, e_i_p), (e_r_s, e_r_p) = sp_directions3(k_in, k_out, normal)
+                cos_theta_i = -dot3(normal, k_in)
+                r_s, r_p = slab_reflection_coefficients(
+                    n_r_val, cos_theta_i, thickness_val, wavelength
+                )
 
-    k_last = k_hats[-1]
-    theta_hat_last, _ = spherical3(k_last)
-    theta_hat_neg, _ = spherical3(tuple(-comp for comp in k_last))
-    a = dot3(theta_hat_last, theta_hat_neg) * e_theta
+                # (theta, phi) -> local (s, p), scale, -> next (theta, phi).
+                f_s = r_s * (dot3(e_i_s, th_in) * e_theta + dot3(e_i_s, ph_in) * e_phi)
+                f_p = r_p * (dot3(e_i_p, th_in) * e_theta + dot3(e_i_p, ph_in) * e_phi)
+                new_theta = dot3(th_out, e_r_s) * f_s + dot3(th_out, e_r_p) * f_p
+                new_phi = dot3(ph_out, e_r_s) * f_s + dot3(ph_out, e_r_p) * f_p
 
-    s_tot = s_lens[0]
-    for s_len in s_lens[1:]:
-        s_tot = s_tot + s_len
-    spreading = safe_divide(torch.ones_like(s_tot), s_tot)
-    phase = -2.0 * math.pi * frequency * s_tot / c
-    a = a * spreading * torch.complex(torch.cos(phase), torch.sin(phase))
-    a = a * (wavelength / (4 * math.pi))
+                keep = is_reflection[..., b]
+                e_theta = torch.where(keep, new_theta, e_theta)
+                e_phi = torch.where(keep, new_phi, e_phi)
 
-    weight = paths.mask.to(torch.float32) * geom_finite.to(torch.float32)
-    # complex * float multiplies both parts: no complex-valued backward of
-    # the weight enters a gradient through the confidence.
-    return a * weight
+        k_last = k_hats[-1]
+        theta_hat_last, _ = spherical3(k_last)
+        theta_hat_neg, _ = spherical3(tuple(-comp for comp in k_last))
+        a = dot3(theta_hat_last, theta_hat_neg) * e_theta
+
+        s_tot = s_lens[0]
+        for s_len in s_lens[1:]:
+            s_tot = s_tot + s_len
+        spreading = safe_divide(torch.ones_like(s_tot), s_tot)
+        phase = -2.0 * math.pi * frequency * s_tot / c
+        a = a * spreading * torch.complex(torch.cos(phase), torch.sin(phase))
+        a = a * (wavelength / (4 * math.pi))
+
+        weight = paths.mask.to(torch.float32) * geom_finite.to(torch.float32)
+        # complex * float multiplies both parts: no complex-valued backward of
+        # the weight enters a gradient through the confidence.
+        return a * weight
 
 
 def received_power(
@@ -395,35 +397,36 @@ def _coverage_tile(
     ``smoothing_factor`` the checks are sigmoids and each path's amplitude
     is weighted by its confidence.
     """
-    from .rt._solvers import trace_path_candidates
+    with annotate("tile"):
+        from .rt._solvers import trace_path_candidates
 
-    paths = trace_path_candidates(
-        scene.mesh,
-        tx,
-        rx_tile,
-        cand_chunk,
-        interaction_types=itype_chunk,
-        megakernel=megakernel,
-        batch_size=batch_size,
-        smoothing_factor=smoothing_factor,
-    )
-    if paths.mask.dtype == torch.bool:
-        mask = paths.mask & chunk_valid
-    else:  # a confidence is weighted, not AND-ed
-        mask = paths.mask * chunk_valid.to(paths.mask.dtype)
-    paths = dataclasses.replace(paths, mask=mask)
-    a = complex_amplitudes(
-        paths,
-        scene,
-        frequency,
-        eta_r=eta_r,
-        conductivity=conductivity,
-        thickness=thickness,
-        tx_pattern=tx_pattern,
-    )
-    if coherent:
-        return a.sum(dim=-1)
-    return (torch.abs(a) ** 2).sum(dim=-1)
+        paths = trace_path_candidates(
+            scene.mesh,
+            tx,
+            rx_tile,
+            cand_chunk,
+            interaction_types=itype_chunk,
+            megakernel=megakernel,
+            batch_size=batch_size,
+            smoothing_factor=smoothing_factor,
+        )
+        if paths.mask.dtype == torch.bool:
+            mask = paths.mask & chunk_valid
+        else:  # a confidence is weighted, not AND-ed
+            mask = paths.mask * chunk_valid.to(paths.mask.dtype)
+        paths = dataclasses.replace(paths, mask=mask)
+        a = complex_amplitudes(
+            paths,
+            scene,
+            frequency,
+            eta_r=eta_r,
+            conductivity=conductivity,
+            thickness=thickness,
+            tx_pattern=tx_pattern,
+        )
+        if coherent:
+            return a.sum(dim=-1)
+        return (torch.abs(a) ** 2).sum(dim=-1)
 
 
 def power_map_chunked(
@@ -457,71 +460,72 @@ def power_map_chunked(
     (:func:`~differt_tpu_torch.rt.trace_path_candidates`), ``tx_pattern``
     to :func:`complex_amplitudes`.
     """
-    from .ops._rt import morton_perm_points
-    from .rt._solvers import _SOLVER_REGISTRY
+    with annotate("coverage.map"):
+        from .ops._rt import morton_perm_points
+        from .rt._solvers import _SOLVER_REGISTRY
 
-    device = scene.mesh.device
-    frequency = torch.as_tensor(frequency, dtype=torch.float32, device=device)
-    eta_r, conductivity, thickness = _resolve_materials(
-        scene, frequency, eta_r, conductivity, thickness
-    )
-    tx = scene.transmitters.reshape(-1, 3)
-    rx_all = scene.receivers.reshape(-1, 3)
+        device = scene.mesh.device
+        frequency = torch.as_tensor(frequency, dtype=torch.float32, device=device)
+        eta_r, conductivity, thickness = _resolve_materials(
+            scene, frequency, eta_r, conductivity, thickness
+        )
+        tx = scene.transmitters.reshape(-1, 3)
+        rx_all = scene.receivers.reshape(-1, 3)
 
-    if path_candidates is None:
-        tracer = _SOLVER_REGISTRY[solver]() if isinstance(solver, str) else solver
-        candidates, itypes = tracer.generate_path_candidates(scene, order)
-    else:
-        candidates = torch.as_tensor(path_candidates, device=device)
-        itypes = torch.zeros_like(candidates, dtype=torch.int32)
+        if path_candidates is None:
+            tracer = _SOLVER_REGISTRY[solver]() if isinstance(solver, str) else solver
+            candidates, itypes = tracer.generate_path_candidates(scene, order)
+        else:
+            candidates = torch.as_tensor(path_candidates, device=device)
+            itypes = torch.zeros_like(candidates, dtype=torch.int32)
 
-    num_candidates = candidates.shape[0]
-    candidate_chunk = min(candidate_chunk, max(num_candidates, 1))
-    pad_c = -num_candidates % candidate_chunk
-    if pad_c:
-        candidates = torch.cat((candidates, candidates[:1].expand(pad_c, -1)))
-        itypes = torch.cat((itypes, itypes[:1].expand(pad_c, -1)))
+        num_candidates = candidates.shape[0]
+        candidate_chunk = min(candidate_chunk, max(num_candidates, 1))
+        pad_c = -num_candidates % candidate_chunk
+        if pad_c:
+            candidates = torch.cat((candidates, candidates[:1].expand(pad_c, -1)))
+            itypes = torch.cat((itypes, itypes[:1].expand(pad_c, -1)))
 
-    num_rx = rx_all.shape[0]
-    rx_chunk = min(rx_chunk, max(num_rx, 1))
-    rx_perm = None
-    if num_rx > rx_chunk:
-        rx_perm = morton_perm_points(rx_all)
-        rx_all = rx_all[rx_perm]
-    pad_r = -num_rx % rx_chunk
-    if pad_r:
-        rx_all = torch.cat((rx_all, rx_all[:1].expand(pad_r, 3)))
+        num_rx = rx_all.shape[0]
+        rx_chunk = min(rx_chunk, max(num_rx, 1))
+        rx_perm = None
+        if num_rx > rx_chunk:
+            rx_perm = morton_perm_points(rx_all)
+            rx_all = rx_all[rx_perm]
+        pad_r = -num_rx % rx_chunk
+        if pad_r:
+            rx_all = torch.cat((rx_all, rx_all[:1].expand(pad_r, 3)))
 
-    out_tiles = []
-    for r0 in range(0, rx_all.shape[0], rx_chunk):
-        rx_tile = rx_all[r0 : r0 + rx_chunk]
-        acc = None
-        for lo in range(0, candidates.shape[0], candidate_chunk):
-            chunk_valid = (
-                torch.arange(lo, lo + candidate_chunk, device=device) < num_candidates
-            )
-            part = _coverage_tile(
-                scene,
-                tx,
-                rx_tile,
-                candidates[lo : lo + candidate_chunk],
-                itypes[lo : lo + candidate_chunk],
-                chunk_valid,
-                frequency,
-                eta_r,
-                conductivity,
-                thickness,
-                coherent,
-                megakernel,
-                batch_size,
-                smoothing_factor,
-                tx_pattern,
-            )
-            acc = part if acc is None else acc + part
-        out_tiles.append(acc)
+        out_tiles = []
+        for r0 in range(0, rx_all.shape[0], rx_chunk):
+            rx_tile = rx_all[r0 : r0 + rx_chunk]
+            acc = None
+            for lo in range(0, candidates.shape[0], candidate_chunk):
+                chunk_valid = (
+                    torch.arange(lo, lo + candidate_chunk, device=device) < num_candidates
+                )
+                part = _coverage_tile(
+                    scene,
+                    tx,
+                    rx_tile,
+                    candidates[lo : lo + candidate_chunk],
+                    itypes[lo : lo + candidate_chunk],
+                    chunk_valid,
+                    frequency,
+                    eta_r,
+                    conductivity,
+                    thickness,
+                    coherent,
+                    megakernel,
+                    batch_size,
+                    smoothing_factor,
+                    tx_pattern,
+                )
+                acc = part if acc is None else acc + part
+            out_tiles.append(acc)
 
-    total = torch.cat(out_tiles, dim=-1)[..., :num_rx]
-    if rx_perm is not None:
-        total = total[..., torch.argsort(rx_perm)]
-    power = torch.abs(total) ** 2 / z_0 if coherent else total / z_0
-    return power.reshape(*scene.transmitters.shape[:-1], *scene.receivers.shape[:-1])
+        total = torch.cat(out_tiles, dim=-1)[..., :num_rx]
+        if rx_perm is not None:
+            total = total[..., torch.argsort(rx_perm)]
+        power = torch.abs(total) ** 2 / z_0 if coherent else total / z_0
+        return power.reshape(*scene.transmitters.shape[:-1], *scene.receivers.shape[:-1])

@@ -24,6 +24,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..profiling import annotate
+
 _SOURCE = Path(__file__).resolve().parent / "_native.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 _LOCK = threading.Lock()
@@ -143,17 +145,18 @@ def filtered_path_candidates(
         raise RuntimeError(msg)
     CALLS += 1
     keep = [_u8(m) for m in (from_adjacency, to_adjacency, node_mask)]
-    ptrs = [None if k is None else k[1] for k in keep]
-    count = lib.count_filtered_paths(num_nodes, order, *ptrs)
-    out = np.empty((count, max(order, 0)), dtype=np.int32)
-    if count and order > 0:
-        written = lib.fill_filtered_paths(
-            num_nodes, order, *ptrs, out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), count
-        )
-        if written != count:
-            msg = f"The DFS wrote {written} of {count} candidates."
-            raise RuntimeError(msg)
-    return torch.from_numpy(out).to(device=_device(device), dtype=torch.int64)
+    with annotate("dfs"):
+        ptrs = [None if k is None else k[1] for k in keep]
+        count = lib.count_filtered_paths(num_nodes, order, *ptrs)
+        out = np.empty((count, max(order, 0)), dtype=np.int32)
+        if count and order > 0:
+            written = lib.fill_filtered_paths(
+                num_nodes, order, *ptrs, out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), count
+            )
+            if written != count:
+                msg = f"The DFS wrote {written} of {count} candidates."
+                raise RuntimeError(msg)
+        return torch.from_numpy(out).to(device=_device(device), dtype=torch.int64)
 
 
 def filtered_path_candidates_chunked(

@@ -21,6 +21,7 @@ answers of the contract.
 
 import torch
 
+from ..profiling import annotate
 from ..rt._scan import first_triangle_hit_by_ray
 from ..rt._triangle import F32_EPS, ray_intersect_triangle
 from ._build import check_launch, load_kernels
@@ -150,19 +151,21 @@ def first_triangle_hit_by_ray_cuda(
 def launch_closest(ray_origins, ray_directions, bvh, epsilon: float, pos_out, t_out) -> None:
     """Launch ``csrc/closest.cu`` on checked inputs (counted in :data:`LAUNCHES`)."""
     global LAUNCHES
-    status = load_kernels().differt_closest(
-        ray_origins.data_ptr(),
-        ray_directions.data_ptr(),
-        bvh.nodes.data_ptr(),
-        bvh.triangles.data_ptr(),
-        bvh.num_nodes,
-        bvh.large_begin,
-        bvh.num_large,
-        ray_origins.shape[0],
-        epsilon,
-        pos_out.data_ptr(),
-        t_out.data_ptr(),
-        torch.cuda.current_stream(pos_out.device).cuda_stream,
-    )
+    lib = load_kernels()
+    with annotate("kernel.closest"):
+        status = lib.differt_closest(
+            ray_origins.data_ptr(),
+            ray_directions.data_ptr(),
+            bvh.nodes.data_ptr(),
+            bvh.triangles.data_ptr(),
+            bvh.num_nodes,
+            bvh.large_begin,
+            bvh.num_large,
+            ray_origins.shape[0],
+            epsilon,
+            pos_out.data_ptr(),
+            t_out.data_ptr(),
+            torch.cuda.current_stream(pos_out.device).cuda_stream,
+        )
     LAUNCHES += 1
     check_launch("differt_closest", status)

@@ -30,6 +30,7 @@ import torch
 from ..rt._image_method import sign
 from ..rt._triangle import ray_intersect_triangle
 from ..geometry._vectors import _dot
+from ..profiling import annotate
 from ._build import check_launch, load_kernels
 from ._rt import _check, checked_bvh, ray_intersect_any_triangle_reference
 
@@ -347,28 +348,30 @@ def launch_trace(
     ``cand_tris [C, tpm * k, 9]`` each candidate triangle's v0, e1, e2.
     """
     global LAUNCHES
-    status = load_kernels().differt_trace(
-        tx_vertices.data_ptr(),
-        rx_vertices.data_ptr(),
-        mirrors.data_ptr(),
-        cand_tris.data_ptr(),
-        bvh.nodes.data_ptr(),
-        bvh.triangles.data_ptr(),
-        order,
-        tpm,
-        tx_vertices.shape[0],
-        mirrors.shape[0],
-        rx_vertices.shape[0],
-        bvh.num_nodes,
-        bvh.large_begin,
-        bvh.num_large,
-        epsilon,
-        hit_tol,
-        1.0 - 2.0 * hit_tol,
-        min_len,
-        vertices.data_ptr(),
-        mask.data_ptr(),
-        torch.cuda.current_stream(mask.device).cuda_stream,
-    )
+    lib = load_kernels()
+    with annotate("kernel.trace"):
+        status = lib.differt_trace(
+            tx_vertices.data_ptr(),
+            rx_vertices.data_ptr(),
+            mirrors.data_ptr(),
+            cand_tris.data_ptr(),
+            bvh.nodes.data_ptr(),
+            bvh.triangles.data_ptr(),
+            order,
+            tpm,
+            tx_vertices.shape[0],
+            mirrors.shape[0],
+            rx_vertices.shape[0],
+            bvh.num_nodes,
+            bvh.large_begin,
+            bvh.num_large,
+            epsilon,
+            hit_tol,
+            1.0 - 2.0 * hit_tol,
+            min_len,
+            vertices.data_ptr(),
+            mask.data_ptr(),
+            torch.cuda.current_stream(mask.device).cuda_stream,
+        )
     LAUNCHES += 1
     check_launch("differt_trace", status)

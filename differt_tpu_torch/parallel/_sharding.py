@@ -27,6 +27,7 @@ import torch.distributed as dist
 from ..coverage import _coverage_tile, _resolve_materials, received_power
 from ..em import z_0
 from ..geometry import Scene, TracedPaths, generate_path_candidates
+from ..profiling import annotate
 from ..rt._solvers import trace_path_candidates as _trace_path_candidates
 from ..treekit import tree_leaves, tree_rebuild
 
@@ -672,54 +673,58 @@ def streamed_placement_step(
     >>> bool((tx != scene.transmitters).any())
     True
     """
-    frequency, tx, eta_r, conductivity, thickness, scene_tile, tiles, num_rx, rx_chunk, pad_r = (
-        _streamed_setup(
-            scene, frequency, mesh, tx, eta_r, conductivity, thickness,
-            path_candidates, candidate_chunk, rx_chunk,
-        )
-    )
-    tx, eta_r = tx.detach(), eta_r.detach()
-    re, im = _streamed_forward(
-        scene_tile, tiles, mesh, tx, frequency, eta_r, conductivity, thickness, num_rx,
-        rx_chunk, megakernel, batch_size, smoothing_factor,
-    )
-
-    # Pass 2: the loss and its gradient on the accumulated sums only.
-    re.requires_grad_()
-    im.requires_grad_()
-    loss = _placement_loss(re, im, target_power)
-    g_re, g_im = torch.autograd.grad(loss, (re, im))
-    if pad_r:
-        zeros = g_re.new_zeros((g_re.shape[0], pad_r))
-        g_re = torch.cat((g_re, zeros), dim=-1)
-        g_im = torch.cat((g_im, zeros), dim=-1)
-
-    # Pass 3: each tile again, differentiated against its slice.
-    g_tx = torch.zeros_like(tx)
-    g_eta = torch.zeros_like(eta_r)
-    for row, rx_tile, cand, itypes, valid in tiles():
-        sl = slice(row * rx_chunk, (row + 1) * rx_chunk)
-        cotangents = (g_re[:, sl], g_im[:, sl])
-        if mesh is not None:  # this rank's block; the padded receivers' cotangent is 0
-            cotangents = tuple(
-                shard_along(torch.cat((g, g.new_zeros(g.shape[0], -g.shape[1] % mesh.size)), -1), mesh, 1)
-                for g in cotangents
+    with annotate("step"):
+        frequency, tx, eta_r, conductivity, thickness, scene_tile, tiles, num_rx, rx_chunk, pad_r = (
+            _streamed_setup(
+                scene, frequency, mesh, tx, eta_r, conductivity, thickness,
+                path_candidates, candidate_chunk, rx_chunk,
             )
-        tx_leaf = tx.clone().requires_grad_()
-        eta_leaf = eta_r.clone().requires_grad_()
-        parts = _tile_amplitude_parts(
-            scene_tile, tx_leaf, eta_leaf, rx_tile, cand, itypes, valid, frequency,
-            conductivity, thickness, megakernel, batch_size, smoothing_factor,
         )
-        # A line-of-sight tile reads no material: its share of g_eta is None.
-        d_tx, d_eta = torch.autograd.grad(parts, (tx_leaf, eta_leaf), cotangents, allow_unused=True)
-        del parts
-        if d_tx is not None:
-            g_tx += d_tx
-        if d_eta is not None:
-            g_eta += d_eta
-    if mesh is not None:  # one sum over the ranks a step, whatever each rank's tiles read
-        summed = _all_reduce(torch.cat((g_tx.reshape(-1), g_eta)), mesh)
-        g_tx, g_eta = summed[: g_tx.numel()].reshape(g_tx.shape), summed[g_tx.numel() :]
+        tx, eta_r = tx.detach(), eta_r.detach()
+        with annotate("step.pass1"):
+            re, im = _streamed_forward(
+                scene_tile, tiles, mesh, tx, frequency, eta_r, conductivity, thickness, num_rx,
+                rx_chunk, megakernel, batch_size, smoothing_factor,
+            )
 
-    return tx - tx_learning_rate * g_tx, eta_r - eta_learning_rate * g_eta, loss.detach()
+        # Pass 2: the loss and its gradient on the accumulated sums only.
+        re.requires_grad_()
+        im.requires_grad_()
+        loss = _placement_loss(re, im, target_power)
+        g_re, g_im = torch.autograd.grad(loss, (re, im))
+        if pad_r:
+            zeros = g_re.new_zeros((g_re.shape[0], pad_r))
+            g_re = torch.cat((g_re, zeros), dim=-1)
+            g_im = torch.cat((g_im, zeros), dim=-1)
+
+        # Pass 3: each tile again, differentiated against its slice.
+        with annotate("step.pass3"):
+            g_tx = torch.zeros_like(tx)
+            g_eta = torch.zeros_like(eta_r)
+            for row, rx_tile, cand, itypes, valid in tiles():
+                sl = slice(row * rx_chunk, (row + 1) * rx_chunk)
+                cotangents = (g_re[:, sl], g_im[:, sl])
+                if mesh is not None:  # this rank's block; the padded receivers' cotangent is 0
+                    cotangents = tuple(
+                        shard_along(torch.cat((g, g.new_zeros(g.shape[0], -g.shape[1] % mesh.size)), -1), mesh, 1)
+                        for g in cotangents
+                    )
+                tx_leaf = tx.clone().requires_grad_()
+                eta_leaf = eta_r.clone().requires_grad_()
+                parts = _tile_amplitude_parts(
+                    scene_tile, tx_leaf, eta_leaf, rx_tile, cand, itypes, valid, frequency,
+                    conductivity, thickness, megakernel, batch_size, smoothing_factor,
+                )
+                # A line-of-sight tile reads no material: its share of g_eta is None.
+                with annotate("step.backward"):
+                    d_tx, d_eta = torch.autograd.grad(parts, (tx_leaf, eta_leaf), cotangents, allow_unused=True)
+                del parts
+                if d_tx is not None:
+                    g_tx += d_tx
+                if d_eta is not None:
+                    g_eta += d_eta
+            if mesh is not None:  # one sum over the ranks a step, whatever each rank's tiles read
+                summed = _all_reduce(torch.cat((g_tx.reshape(-1), g_eta)), mesh)
+                g_tx, g_eta = summed[: g_tx.numel()].reshape(g_tx.shape), summed[g_tx.numel() :]
+
+        return tx - tx_learning_rate * g_tx, eta_r - eta_learning_rate * g_eta, loss.detach()

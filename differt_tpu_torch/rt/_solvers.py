@@ -37,6 +37,7 @@ from ..geometry._lattice import fibonacci_lattice, viewing_frustum
 from ..geometry._mesh import Mesh
 from ..geometry._paths import LaunchedPaths, TracedPaths, concatenate_paths
 from ..geometry._vectors import _cross, _dot, assemble_path
+from ..profiling import annotate
 from ..utils import max_with_initial, min_with_initial, smoothing_function
 from ._image_method import consecutive_vertices_are_on_same_side_of_mirror, image_method
 from ._scan import smoothed_any_hit
@@ -634,17 +635,18 @@ class HybridPathTracer(_TracerOptions):
 
     def _visibility(self, scene) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
         """``[num_primitives]`` masks: seen from a TX, seen from an RX, active (or None)."""
-        mesh = scene.mesh
-        visible_tx = mesh.triangles_visible_from_vertex(
-            scene.transmitters.reshape(-1, 3), num_rays=self.num_rays
-        ).any(dim=0)
-        visible_rx = mesh.triangles_visible_from_vertex(
-            scene.receivers.reshape(-1, 3), num_rays=self.num_rays
-        ).any(dim=0)
-        if mesh.assume_quads:
-            visible_tx = visible_tx.reshape(-1, 2).any(dim=-1)
-            visible_rx = visible_rx.reshape(-1, 2).any(dim=-1)
-        return visible_tx, visible_rx, _quad_mask(mesh)
+        with annotate("visibility"):
+            mesh = scene.mesh
+            visible_tx = mesh.triangles_visible_from_vertex(
+                scene.transmitters.reshape(-1, 3), num_rays=self.num_rays
+            ).any(dim=0)
+            visible_rx = mesh.triangles_visible_from_vertex(
+                scene.receivers.reshape(-1, 3), num_rays=self.num_rays
+            ).any(dim=0)
+            if mesh.assume_quads:
+                visible_tx = visible_tx.reshape(-1, 2).any(dim=-1)
+                visible_rx = visible_rx.reshape(-1, 2).any(dim=-1)
+            return visible_tx, visible_rx, _quad_mask(mesh)
 
     def generate_path_candidates(self, scene, order: int | Sequence[int]):
         """The ``[C, order]`` candidates that survive the visibility pruning, and their (zero) types."""
