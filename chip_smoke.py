@@ -12,7 +12,8 @@ version, and drives three paths, each counted from zero:
 
 - coverage: ``power_map_chunked`` on the 20,738-triangle
   ``urban_scene(24, 24)``, orders 0, 1 and 2, through the any-hit and
-  fused trace kernels;
+  fused trace kernels and the EM tile kernel (``csrc/em.cu``, one launch
+  a tile), the last held against its plain twin on tiles of each order;
 - ray launching, at the width of the JAX bench's ``bench_config3``:
   ``Scene.launch_paths`` (SBR, order 3, 250,000 rays) and
   ``Scene.compute_tx_mlm`` (order 2, 500,000 rays, 128 x 128 cells) on the
@@ -86,7 +87,8 @@ version, and drives three paths, each counted from zero:
   torch_cityscale_optimization.md``'s workflow on the 112,898-triangle
   ``urban_scene(56, 56)`` (``bench.py::bench_cityscale_xl``'s city, one BVH
   build): the decode beyond int32, both path kernels against their plain
-  versions at its shapes, ``power_map_chunked`` on 65,536 order-2
+  versions at its shapes, the EM tile kernel against its twin on a map
+  tile, ``power_map_chunked`` on 65,536 order-2
   candidates over 128 x 128 receivers (1.07e9 paths) against
   ``megakernel=False`` on 128 of them, and three ``streamed_placement_step``
   on every order-1 candidate and 256 order-2 over 64 x 64 receivers,
@@ -284,6 +286,78 @@ def check_trace(label, scene, candidates, order, *, want_valid=False, phase=3):
         "bound_by": bound_by,
         "library_ms": None,  # No single PyTorch call computes the fused trace.
     }
+
+
+def check_em(label, scene, candidates, materials: dict, *, want_valid=False, phase=4):
+    """The EM tile kernel against its plain twin on one traced tile of a path
+    (the tile ``_coverage_tile`` hands it: the fused trace's vertices and
+    mask, each candidate's rows), and two launches bit for bit; then timed
+    alone (its device records), in its wrapper and plain. Returns the row
+    of the kernels line.
+
+    The bound: each path's mask byte, a valid path's vertices, the rows and
+    the sums; the operations of the paths that survive are not counted.
+    """
+    from differt_tpu_torch.ops import _em
+    from differt_tpu_torch.rt._solvers import candidate_rows, trace_geometry
+
+    tx = scene.transmitters.reshape(-1, 3)
+    rx = scene.receivers.reshape(-1, 3)
+    vertices, mask, triangles, k = trace_geometry(scene.mesh, tx, rx, candidates)
+    objects, types = candidate_rows(triangles, None, k)
+    mats = {name: torch.as_tensor(v, dtype=torch.float32, device=tx.device) for name, v in materials.items()}
+    args = (vertices, mask, objects, types, scene.mesh, FREQUENCY)
+    launches = _em.LAUNCHES
+    got = _em.em_tile_sum(*args, **mats)
+    again = _em.em_tile_sum(*args, **mats)
+    want = _em.em_tile_sum_reference(*args, **mats)
+    torch.cuda.synchronize()
+    if _em.LAUNCHES != launches + 2:
+        msg = f"the EM tile kernel launched {_em.LAUNCHES - launches} times for 2 calls ({label})"
+        raise AssertionError(msg)
+    valid = int(mask.sum())
+    if want_valid and not valid:
+        msg = f"no valid path to compare sums on ({label})"
+        raise AssertionError(msg)
+    if not torch.equal(got, again):
+        msg = f"two launches of the EM tile kernel differ ({label})"
+        raise AssertionError(msg)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    if not err <= 1e-4 * scale:
+        msg = f"the EM tile kernel's sums differ from its twin's by {err} (largest sum {scale}) ({label})"
+        raise AssertionError(msg)
+    records = profile(f"em {label}", lambda: [_em.em_tile_sum(*args, **mats) for _ in range(10)], ("em_kernel",))
+    kernel_ms = records["em_kernel"][1]
+    ms = cuda_ms(lambda: _em.em_tile_sum(*args, **mats), 20)
+    plain_ms = cuda_ms(lambda: _em.em_tile_sum_reference(*args, **mats), 2)
+    order = vertices.shape[-2] - 2
+    num_bytes = mask.numel() + valid * (order + 2) * 12 + objects.numel() * 12 + got.numel() * got.element_size()
+    bound_ms, bound_by = bound(num_bytes, 0.0)
+    print(
+        f"phase {phase} em {label}: paths={mask.numel()} valid={valid} largest_sum={scale:.4g}"
+        f" max_abs_err={err:.3g} rel_err={err / scale if scale else 0.0:.3g} repeat_bitwise=True"
+        f" kernel_only_ms={kernel_ms:.4f} wrapper_ms={ms:.4f} plain_ms={plain_ms:.3f}"
+        f" bound_ms={bound_ms:.5f} ({bound_by}, {num_bytes} bytes)",
+        flush=True,
+    )
+    return {
+        "valid": valid,
+        "max_abs_err": err,
+        "rel_err": err / scale if scale else 0.0,
+        "kernel_only_ms": kernel_ms,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # No single PyTorch call computes the chain and its sum.
+    }
+
+
+def note_em(kernels: dict, path: str, launches: int) -> None:
+    """Add a path's launches of the EM tile kernel to its row of the kernels line."""
+    kernels["em"]["launches"] += launches
+    kernels["em"]["launches_by_path"][path] = kernels["em"]["launches_by_path"].get(path, 0) + launches
 
 
 def db_error(port: torch.Tensor, ref: torch.Tensor, window_db: float = 40.0) -> float:
@@ -725,6 +799,7 @@ def run_ray_launching(device, kernels: dict) -> dict:
 # The count of :func:`counters` that each port kernel's wrapper raises once a launch.
 PROFILED_COUNTS = {
     "trace_kernel": "trace", "compact_kernel": "anyhit", "anyhit_kernel": "anyhit", "closest_kernel": "closest",
+    "em_kernel": "em",
 }
 PROFILE_ATTEMPTS = 4
 # torch.profiler on the card loses device records: in a process some minutes
@@ -1095,7 +1170,7 @@ def run_placement(device, kernels: dict) -> None:
     a strided subsample of the same grid; a profile and a tile's breakdown."""
     from differt_tpu_torch import ops
     from differt_tpu_torch.coverage import _coverage_tile, complex_amplitudes, z_0
-    from differt_tpu_torch.ops import _bvh, _rt, _trace
+    from differt_tpu_torch.ops import _bvh, _em, _rt, _trace
     from differt_tpu_torch.parallel import streamed_placement_loss, streamed_placement_step
     from differt_tpu_torch.parallel._sharding import _placement_loss
     from differt_tpu_torch.rt import trace_path_candidates
@@ -1169,17 +1244,18 @@ def run_placement(device, kernels: dict) -> None:
 
     run_scene = fresh(scene)
     _rt.LAUNCHES = _trace.LAUNCHES = _rt.REFERENCE_CALLS = _trace.REFERENCE_CALLS = 0
-    _bvh.BUILDS = 0
+    _bvh.BUILDS = _em.LAUNCHES = 0
     (new_tx, new_eta, loss), wall, peak = timed(lambda: step(run_scene, candidates), "step")
     counts = {
+        "em": _em.LAUNCHES,
         "trace": _trace.LAUNCHES,
         "anyhit": _rt.LAUNCHES,
         "trace_plain": _trace.REFERENCE_CALLS,
         "anyhit_plain": _rt.REFERENCE_CALLS,
         "bvh_builds": _bvh.BUILDS,
     }
-    want_counts = {
-        "trace": 2 * tiles, "anyhit": 0, "trace_plain": 0, "anyhit_plain": 0, "bvh_builds": 1,
+    want_counts = {  # the EM tile kernel in pass 1's tiles; pass 3's run the plain chain
+        "em": tiles, "trace": 2 * tiles, "anyhit": 0, "trace_plain": 0, "anyhit_plain": 0, "bvh_builds": 1,
     }
     if counts != want_counts:
         msg = f"the gradient step's counts are {counts}, expected {want_counts}"
@@ -1199,6 +1275,7 @@ def run_placement(device, kernels: dict) -> None:
         "coverage": kernels["trace"]["launches"], "placement_step": counts["trace"],
     }
     kernels["trace"]["launches"] += counts["trace"]
+    note_em(kernels, "placement_step", counts["em"])
     print(
         f"phase 10 gradient step: tx={GRAD_TX} grid={grid}x{grid} rx={num_rx}"
         f" triangles={scene.mesh.num_triangles} orders=[1, 2] candidates={GRAD_SHARD} an order"
@@ -1365,9 +1442,10 @@ def run_smoothed(device) -> None:
 def counters() -> dict:
     """Each count's ``(module, attribute)``: every kernel's launches and plain calls, BVH builds, DFS calls."""
     from differt_tpu_torch import native
-    from differt_tpu_torch.ops import _bvh, _closest, _rt, _trace
+    from differt_tpu_torch.ops import _bvh, _closest, _em, _rt, _trace
 
     return {
+        "em": (_em, "LAUNCHES"),
         "closest": (_closest, "LAUNCHES"),
         "closest_plain": (_closest, "REFERENCE_CALLS"),
         "trace": (_trace, "LAUNCHES"),
@@ -1613,7 +1691,7 @@ def run_hybrid(
     chunks1 = -(-c1.shape[0] // 4096)
     power1, wall1, card1, counts1 = counted_call(
         "hybrid order-1 map", lambda: hybrid_map(fresh(city), 1),
-        {"closest": vis_launches, "trace": chunks1, "bvh_builds": 1, "dfs": 1},
+        {"closest": vis_launches, "trace": chunks1, "em": chunks1, "bvh_builds": 1, "dfs": 1},
     )
     # Recall and the subset rule on traced paths: every valid hybrid path is
     # a valid exhaustive path (order 1: the candidate is the triangle).
@@ -1641,7 +1719,7 @@ def run_hybrid(
     full2 = c2.shape[0]
     power2, wall2, card2, counts2 = counted_call(
         "hybrid order-2 map", lambda: hybrid_map(fresh(city), 2),
-        {"closest": vis_launches, "trace": -(-full2 // 4096), "bvh_builds": 1, "dfs": 1},
+        {"closest": vis_launches, "trace": -(-full2 // 4096), "em": -(-full2 // 4096), "bvh_builds": 1, "dfs": 1},
     )
     lit2 = int((power2 > 0).sum())
     if not (torch.isfinite(power2).all() and lit2 > 0):
@@ -1665,6 +1743,7 @@ def run_hybrid(
     kernels["trace"]["launches_by_path"]["hybrid"] = trace_launches
     kernels["closest"]["launches"] += counts1["closest"] + counts2["closest"]
     kernels["closest"]["launches_by_path"]["hybrid"] = counts1["closest"] + counts2["closest"]
+    note_em(kernels, "hybrid", counts1["em"] + counts2["em"])
     print(
         f"phase 15 hybrid order-1 map: candidates={c1.shape[0]} rx={rx.shape[0]}"
         f" wall_s={wall1:.4f} card_ms={card1:.2f} paths_per_s={c1.shape[0] * rx.shape[0] / wall1:.4g}"
@@ -3020,7 +3099,7 @@ def run_config5_forward(device, kernels: dict, smi: str):
     run(scene)  # warm, as scaling.py warms its call
     torch.cuda.reset_peak_memory_stats()
     power, wall, card_ms, counts = counted_call(
-        "phase 22 config-5 forward", lambda: run(fresh(scene)), {"trace": tiles, "bvh_builds": 1}
+        "phase 22 config-5 forward", lambda: run(fresh(scene)), {"trace": tiles, "em": tiles, "bvh_builds": 1}
     )
     peak = torch.cuda.max_memory_allocated() / 2**30
     if not (power.shape == (GRAD_TX, CONFIG5_GRID, CONFIG5_GRID) and torch.isfinite(power).all()):
@@ -3064,6 +3143,7 @@ def run_config5_forward(device, kernels: dict, smi: str):
     )
     kernels["trace"]["launches"] += counts["trace"]
     kernels["trace"]["launches_by_path"]["config5_order3"] = counts["trace"]
+    note_em(kernels, "config5_order3", counts["em"])
     kernels["trace_config5"] = {
         "name": "trace (order 3, config-5 chunk)",
         "route": "cuda",
@@ -3135,8 +3215,9 @@ def run_canyon_orders(device, kernels: dict, materials: dict, smi: str):
             )
 
         power, wall, card_ms, counts = counted_call(
-            f"phase 23 order {order}", lambda: run(fresh(canyon)), {"trace": chunks, "bvh_builds": 1}
+            f"phase 23 order {order}", lambda: run(fresh(canyon)), {"trace": chunks, "em": chunks, "bvh_builds": 1}
         )
+        note_em(kernels, "canyon_orders_3_to_5", counts["em"])
         start = time.perf_counter()
         unfused = run(canyon, False)
         torch.cuda.synchronize()
@@ -3500,7 +3581,9 @@ def run_xl(device, kernels: dict, smi: str) -> dict:
     xl_map(two_tiles, chunk)  # warm: one tile
     map_tiles = (XL_MAP_CANDIDATES // XL_MAP_CHUNK) * (num_rx // XL_RX_CHUNK)
     torch.cuda.reset_peak_memory_stats()
-    power, wall, card_ms, counts = counted("(c) XL map", lambda: xl_map(grid, candidates), {"trace": map_tiles})
+    power, wall, card_ms, counts = counted(
+        "(c) XL map", lambda: xl_map(grid, candidates), {"trace": map_tiles, "em": map_tiles}
+    )
     peak = torch.cuda.max_memory_allocated() / 2**30
     lit = int((power > 0).sum())
     if not (power.shape == (1, XL_MAP_GRID, XL_MAP_GRID) and torch.isfinite(power).all() and lit):
@@ -3514,12 +3597,21 @@ def run_xl(device, kernels: dict, smi: str) -> dict:
     check = dataclasses.replace(grid, receivers=rx[picked].contiguous())
     unfused, unfused_wall, _, unfused_counts = counted(
         "(c) XL unfused map", lambda: xl_map(check, candidates, megakernel=False),
-        {"anyhit": XL_MAP_CANDIDATES // XL_MAP_CHUNK},
+        {"anyhit": XL_MAP_CANDIDATES // XL_MAP_CHUNK, "em": XL_MAP_CANDIDATES // XL_MAP_CHUNK},
     )
     err = db_error(flat_power[picked], unfused.reshape(-1))
     if not err <= 0.1:
         msg = f"phase 25 (c): the fused map differs from the unfused pipeline by {err} dB on {picked.shape[0]} receivers"
         raise AssertionError(msg)
+    # The EM tile kernel against its twin on a tile of the map's shape: the
+    # first chunk x 4,096 receivers, those whose paths found the chunk's
+    # first pairs among them.
+    em_rx = torch.cat((street.receivers.reshape(-1, 3), rx[:: XL_MAP_GRID + 1]))
+    em_rx = torch.cat((em_rx, rx[: XL_RX_CHUNK - em_rx.shape[0]]))
+    em_row = check_em(
+        f"(m) XL map tile: {XL_MAP_CHUNK} order-2 candidates x {em_rx.shape[0]} RX",
+        dataclasses.replace(grid, receivers=em_rx.contiguous()), chunk, materials, want_valid=True, phase=25,
+    )
     paths = XL_MAP_CANDIDATES * num_rx
     print(
         f"phase 25 (c) XL map: candidates={XL_MAP_CANDIDATES} rx={XL_MAP_GRID}x{XL_MAP_GRID} paths={paths}"
@@ -3556,7 +3648,8 @@ def run_xl(device, kernels: dict, smi: str) -> dict:
     for i in range(XL_STEPS):
         torch.cuda.reset_peak_memory_stats()
         (new_tx, new_eta, loss), step_wall, step_card_ms, _ = counted(
-            f"(d) step {i + 1}", lambda t=tx_now, e=eta_now: step(step_scene, t, e), {"trace": 2 * step_tiles}
+            f"(d) step {i + 1}", lambda t=tx_now, e=eta_now: step(step_scene, t, e),
+            {"trace": 2 * step_tiles, "em": step_tiles},  # the EM kernel in pass 1 alone
         )
         if not (torch.isfinite(loss) and torch.isfinite(new_tx).all() and bool((new_tx != tx_now).any())):
             msg = f"phase 25 (d) step {i + 1}: loss {float(loss)}, tx {new_tx.tolist()}"
@@ -3597,6 +3690,21 @@ def run_xl(device, kernels: dict, smi: str) -> dict:
     kernels["trace"]["launches_by_path"]["xl_steps"] = XL_STEPS * 2 * step_tiles
     kernels["anyhit"]["launches"] += unfused_counts["anyhit"]
     kernels["anyhit"]["launches_by_path"]["xl_unfused_map"] = unfused_counts["anyhit"]
+    note_em(kernels, "xl_map", counts["em"])
+    note_em(kernels, "xl_unfused_map", unfused_counts["em"])
+    note_em(kernels, "xl_steps", XL_STEPS * step_tiles)
+    kernels["em_xl"] = {
+        "name": "em (m) XL map tile",
+        "route": "cuda",
+        "source": "differt_tpu_torch/csrc/em.cu",
+        "replaces": "differt_tpu/coverage.py::complex_amplitudes (XLA's fusion; no TPU kernel)",
+        "shape": f"{XL_MAP_CHUNK} order-2 candidates x {em_rx.shape[0]} RX",
+        **{k: v for k, v in em_row.items() if k != "valid"},
+        "launches": counts["em"] + unfused_counts["em"] + XL_STEPS * step_tiles,
+        "launches_by_path": {
+            "xl_map": counts["em"], "xl_unfused_map": unfused_counts["em"], "xl_steps": XL_STEPS * step_tiles,
+        },
+    }
     kernels["trace_xl"] = {
         "name": "trace (l) XL chunk",
         "route": "cuda",
@@ -3722,7 +3830,7 @@ def main() -> None:
 
     from differt_tpu_torch import coverage, scenes
     from differt_tpu_torch.geometry import Scene, generate_path_candidates
-    from differt_tpu_torch.ops import _build, _bvh, _rt, _trace
+    from differt_tpu_torch.ops import _build, _bvh, _em, _rt, _trace
 
     device = torch.device("cuda", 0)
     kernels = {}
@@ -3853,15 +3961,16 @@ def main() -> None:
     torch.cuda.synchronize()
     _rt.LAUNCHES = _trace.LAUNCHES = 0
     _rt.REFERENCE_CALLS = _trace.REFERENCE_CALLS = 0
-    maps, builds = {}, {}
+    maps, builds, em_launches = {}, {}, {}
     for order, candidates, num_candidates in runs:
         run_city = fresh(city)
-        _bvh.BUILDS = 0
+        _bvh.BUILDS = _em.LAUNCHES = 0
         start = time.perf_counter()
         power = coverage_run(run_city, order, candidates)
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
         builds[order] = _bvh.BUILDS
+        em_launches[order] = _em.LAUNCHES
         maps[order] = power
         rate = num_candidates * city.num_receivers / wall
         print(
@@ -3891,8 +4000,42 @@ def main() -> None:
     if any(n != 1 for n in builds.values()):
         msg = f"the main path built the BVH {builds} times per order, expected once"
         raise AssertionError(msg)
+    # One EM tile launch a tile (128 receivers, one RX tile), at every order.
+    want_em = {order: -(-num_candidates // 4096) for order, _, num_candidates in runs}
+    if em_launches != want_em:
+        msg = f"the main path's EM tile launches per order are {em_launches}, expected {want_em}"
+        raise AssertionError(msg)
     kernels["anyhit"]["launches"] = counts["anyhit"]
     kernels["trace"]["launches"] = counts["trace"]
+
+    # The EM tile kernel against its twin on the main path's tiles: order 0,
+    # the first order-1 chunk, and an order-2 chunk with valid paths (the
+    # near pairs of phase 3 (c); the main chunk's paths are all blocked).
+    em_rows = {
+        "order 0": check_em(
+            "(a) main path order-0 tile", city,
+            generate_path_candidates(mesh.num_primitives, 0, device=device), materials,
+        ),
+        "order 1": check_em(
+            "(b) main path order-1 chunk", city,
+            generate_path_candidates(mesh.num_primitives, 1, size=4096, device=device), materials,
+        ),
+    }
+    em_row = check_em("(c) order-2 near pairs", city, pairs[:4096], materials, want_valid=True)
+    kernels["em"] = {
+        "name": "em",
+        "route": "cuda",
+        "source": "differt_tpu_torch/csrc/em.cu",
+        "replaces": "differt_tpu/coverage.py::complex_amplitudes (XLA's fusion; no TPU kernel)",
+        "shape": "order-2 tile: 4,096 near pairs x 128 RX",
+        **em_row,
+        "max_abs_err": max(row["max_abs_err"] for row in (em_row, *em_rows.values())),
+        "rel_err": max(row["rel_err"] for row in (em_row, *em_rows.values())),
+        "tiles": em_rows,
+        "launches": 0,
+        "launches_by_path": {},
+    }
+    note_em(kernels, "coverage", sum(em_launches.values()))
 
     # The fused path against the unfused pipeline (any-hit kernel) on the
     # card: order 1 over all candidates, and order 2 over the near pairs of
@@ -3920,7 +4063,7 @@ def main() -> None:
     print(
         f"phase 4 counts: {json.dumps(counts)}; bvh builds per order: {json.dumps(builds)};"
         f" lit pixels per order: {json.dumps(lit)};"
-        f" fused vs unfused max_err_db: {json.dumps(errors)}",
+        f" fused vs unfused max_err_db: {json.dumps(errors)}; em launches per order: {json.dumps(em_launches)}",
         flush=True,
     )
 
@@ -3957,27 +4100,30 @@ def main() -> None:
     run_sionna_cache(device, *ingested, smi)
 
     order2 = main_candidates[: 32 * 4096]
-    profile("coverage order 2, 32 chunks", lambda: coverage_run(city, 2, order2), ("trace_kernel",))
+    on_path = profile("coverage order 2, 32 chunks", lambda: coverage_run(city, 2, order2), ("trace_kernel", "em_kernel"))
+    kept, ms, made = on_path["em_kernel"]
+    kernels["em"]["on_path_ms"], kernels["em"]["on_path_records"] = ms, f"{kept} of {made}"
     profile(
         "coverage order 2 with HW dipole, 32 chunks",
         lambda: coverage_run(city, 2, order2, tx_pattern=patterns["hw"]),
         ("trace_kernel",),
     )
-    profile("hybrid order 1", lambda: hybrid["map"](city, 1), ("closest_kernel", "trace_kernel"))
+    profile("hybrid order 1", lambda: hybrid["map"](city, 1), ("closest_kernel", "trace_kernel", "em_kernel"))
     profile(
-        "coverage order 0", lambda: coverage_run(city, 0, None), ("compact_kernel", "anyhit_kernel")
+        "coverage order 0", lambda: coverage_run(city, 0, None), ("compact_kernel", "anyhit_kernel", "em_kernel")
     )
     profile("SBR", lambda: launching["sbr"](launching["scene"]), ("closest_kernel",))
-    profile("config-5 order 3, 8 of its 128 tiles", config5, ("trace_kernel",))
-    profile("canyon order 5, 8 of its 78 chunks", canyon5, ("trace_kernel",))
+    profile("config-5 order 3, 8 of its 128 tiles", config5, ("trace_kernel", "em_kernel"))
+    profile("canyon order 5, 8 of its 78 chunks", canyon5, ("trace_kernel", "em_kernel"))
     profile("MLM", lambda: launching["mlm"](launching["scene"]), ("closest_kernel",))
     xl_on_path = {
-        "map": profile("XL map, 2 of its 64 tiles", xl["map"], ("trace_kernel",)),
-        "step": profile("XL gradient step, 1 of its 3", xl["step"], ("trace_kernel",)),
+        "map": profile("XL map, 2 of its 64 tiles", xl["map"], ("trace_kernel", "em_kernel")),
+        "step": profile("XL gradient step, 1 of its 3", xl["step"], ("trace_kernel", "em_kernel")),
         "unfused": profile("XL unfused map, 128 rx", xl["unfused"], ("compact_kernel", "anyhit_kernel")),
     }
     for key, path, name in (
-        ("trace_xl", "map", "trace_kernel"), ("trace_xl", "step", "trace_kernel"), ("anyhit_xl", "unfused", "anyhit_kernel")
+        ("trace_xl", "map", "trace_kernel"), ("trace_xl", "step", "trace_kernel"), ("anyhit_xl", "unfused", "anyhit_kernel"),
+        ("em_xl", "map", "em_kernel"), ("em_xl", "step", "em_kernel"),
     ):
         kept, ms, made = xl_on_path[path][name]
         kernels[key][f"on_path_{path}_ms"] = ms

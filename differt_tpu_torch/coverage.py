@@ -9,7 +9,6 @@ to the transmitters, the materials and the mesh's vertices; with a
 they flow through path validity too.
 """
 
-import dataclasses
 import math
 
 import torch
@@ -373,6 +372,30 @@ def power_map(
     return power.reshape(*scene.transmitters.shape[:-1], *scene.receivers.shape[:-1])
 
 
+def _fused_em(vertices: torch.Tensor, mask: torch.Tensor, tx_pattern, inputs) -> bool:
+    """Whether a coverage tile's EM chain and pixel sum run as one kernel.
+
+    Where the tile's paths lie on the card (the "cuda" backend, or "auto"
+    on CUDA tensors), no input can be asked for a gradient, there is no
+    antenna pattern, the mask is hard and the order is one the kernel
+    takes. A gradient needs each path's amplitude in a graph, which the
+    plain chain keeps; a smoothed mask and a pattern stay with it too.
+    """
+    from .ops import get_backend
+    from .ops._trace import MAX_ORDER
+
+    return (
+        get_backend(vertices.device) == "cuda"
+        and tx_pattern is None
+        and mask.dtype == torch.bool
+        and vertices.shape[-2] - 2 <= MAX_ORDER
+        and not (
+            torch.is_grad_enabled()
+            and any(isinstance(x, torch.Tensor) and x.requires_grad for x in inputs)
+        )
+    )
+
+
 def _coverage_tile(
     scene: Scene,
     tx: torch.Tensor,
@@ -396,25 +419,48 @@ def _coverage_tile(
     ``[num_tx, rx_chunk]`` pixel; padded candidates are masked out. With a
     ``smoothing_factor`` the checks are sigmoids and each path's amplitude
     is weighted by its confidence.
+
+    Where no gradient can be asked for (:func:`_fused_em`), the chain and
+    the sum run as one kernel (``ops._em.em_tile_sum``, ``csrc/em.cu``);
+    otherwise :func:`complex_amplitudes` computes each path's amplitude.
     """
     with annotate("tile"):
-        from .rt._solvers import trace_path_candidates
+        from .rt._solvers import _assemble_traced_paths, candidate_rows, trace_geometry
 
-        paths = trace_path_candidates(
+        vertices, mask, triangles, k = trace_geometry(
             scene.mesh,
             tx,
             rx_tile,
             cand_chunk,
-            interaction_types=itype_chunk,
             megakernel=megakernel,
             batch_size=batch_size,
             smoothing_factor=smoothing_factor,
         )
-        if paths.mask.dtype == torch.bool:
-            mask = paths.mask & chunk_valid
+        if mask.dtype == torch.bool:
+            mask = mask & chunk_valid
         else:  # a confidence is weighted, not AND-ed
-            mask = paths.mask * chunk_valid.to(paths.mask.dtype)
-        paths = dataclasses.replace(paths, mask=mask)
+            mask = mask * chunk_valid.to(mask.dtype)
+        inputs = (vertices, frequency, eta_r, conductivity, thickness, scene.mesh.vertices)
+        if _fused_em(vertices, mask, tx_pattern, inputs):
+            from .ops._em import em_tile_sum
+
+            objects, types = candidate_rows(triangles, itype_chunk, k)
+            with annotate("em"):
+                return em_tile_sum(
+                    vertices,
+                    mask,
+                    objects,
+                    types,
+                    scene.mesh,
+                    frequency,
+                    eta_r=eta_r,
+                    conductivity=conductivity,
+                    thickness=thickness,
+                    coherent=coherent,
+                )
+        paths = _assemble_traced_paths(
+            vertices, mask, triangles, itype_chunk, k, tx.shape[0], rx_tile.shape[0], *cand_chunk.shape
+        )
         a = complex_amplitudes(
             paths,
             scene,

@@ -4,6 +4,8 @@
 - :mod:`._bvh`: the kernels' BVH, built once per mesh (``Mesh.bvh``).
 - :mod:`._closest`: closest-hit (``csrc/closest.cu``).
 - :mod:`._trace`: the fused specular trace (``csrc/trace.cu``).
+- :mod:`._em`: a coverage tile's EM chain and per-pixel sum (``csrc/em.cu``),
+  for tiles that need no gradient; CUDA tensors only.
 - :mod:`._build`: builds the CUDA sources with ``nvcc`` at first use.
 - :mod:`._dispatch`: the backend switch and the mesh-level entry points
   (any hit, closest hit, visibility).

@@ -23,7 +23,7 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("anyhit.cu", "closest.cu", "trace.cu")
+SOURCES = ("anyhit.cu", "closest.cu", "em.cu", "trace.cu")
 HEADERS = ("mt.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -39,10 +39,13 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of csrc/*.cu (every pointer, and the stream, as c_void_p).
 _SIGNATURES = {
     "differt_anyhit": (_P,) * 5 + (_I,) * 6 + (_F, _P, _P, _P),
     "differt_closest": (_P,) * 4 + (_I,) * 4 + (_F, _P, _P, _P),
+    "differt_em": (_P,) * 7 + (_I, _P) + (_I,) * 4 + (_L,) * 6 + (_I, _P, _P, _P),
+    "differt_em_splits": (_I,) * 3,
     "differt_trace": (_P,) * 6 + (_I,) * 8 + (_F,) * 4 + (_P, _P, _P),
     "differt_trace_max_order": (),
 }

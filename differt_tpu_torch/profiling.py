@@ -30,7 +30,9 @@ Span               Where                                               Read by
 ``step.pass3``     its pass 3, each tile again and its backward        (parent of pass 3's spans)
 ``step.backward``  each ``torch.autograd.grad`` of pass 3              ``backward.device_ms.step``
 ``tile``           ``coverage._coverage_tile``                         ``tile.glue_ms_per_tile``
-``em``             ``coverage.complex_amplitudes``                     ``em.span_ms_per_tile``, ``tile.glue_*``
+``em``             ``coverage.complex_amplitudes``; a fused tile's     ``em.span_ms_per_tile``, ``tile.glue_*``
+                   ``ops._em.em_tile_sum`` call in ``_coverage_tile``
+``kernel.em``      ``ops/_em.py::em_tile_sum``, the launch alone       ``em.fused_pct`` (tiles that hold one)
 ``kernel.trace``   ``ops/_trace.py::launch_trace``, the launch alone   ``trace.span_roofline``, ``tile.glue_*``
 ``kernel.closest`` ``ops/_closest.py::launch_closest``, the launch     ``closest.span_roofline.map``
 ``visibility``     ``rt/_solvers.py::HybridPathTracer._visibility``    ``visibility.device_ms.map``

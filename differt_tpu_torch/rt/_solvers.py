@@ -100,12 +100,49 @@ def trace_path_candidates(
     sigmoid in ``t`` cannot resolve the ``hit_tol`` offset that keeps the
     hard test off them, and would count them as half-blockers.
     """
+    full_paths, mask, expanded, k = trace_geometry(
+        mesh,
+        tx_vertices,
+        rx_vertices,
+        path_candidates,
+        epsilon=epsilon,
+        hit_tol=hit_tol,
+        min_len=min_len,
+        smoothing_factor=smoothing_factor,
+        batch_size=batch_size,
+        megakernel=megakernel,
+    )
+    return _assemble_traced_paths(
+        full_paths, mask, expanded, interaction_types, k,
+        tx_vertices.shape[0], rx_vertices.shape[0], *path_candidates.shape, confidence_threshold,
+    )
+
+
+def trace_geometry(
+    mesh: Mesh,
+    tx_vertices: torch.Tensor,
+    rx_vertices: torch.Tensor,
+    path_candidates: torch.Tensor,
+    *,
+    epsilon: float | None = None,
+    hit_tol: float | None = None,
+    min_len: float | None = None,
+    smoothing_factor: float | torch.Tensor | None = None,
+    batch_size: int | None = 512,
+    megakernel: bool | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """:func:`trace_path_candidates` before its objects and types are attached.
+
+    Returns the paths' vertices ``[Ntx, Nrx, C, order + 2, 3]``, their mask
+    ``[Ntx, Nrx, C]``, the candidates' triangles and ``k`` as
+    :func:`candidate_geometry` gives them. A caller that needs no
+    ``TracedPaths`` (a coverage tile summed by ``csrc/em.cu``) is spared the
+    expanded ``[Ntx, Nrx, C, order + 2]`` objects.
+    """
     if min_len is None:
         min_len = 10.0 * F32_EPS
     smooth = smoothing_factor is not None
 
-    num_tx = tx_vertices.shape[0]
-    num_rx = rx_vertices.shape[0]
     num_candidates, order = path_candidates.shape
     path_candidates, triangle_vertices, mirror_vertices, mirror_normals = (
         candidate_geometry(mesh, path_candidates)
@@ -157,10 +194,7 @@ def trace_path_candidates(
         mask = mask.transpose(1, 2)
         if active_rays is not None:
             mask = mask & active_rays
-        return _assemble_traced_paths(
-            full_paths, mask, path_candidates, interaction_types, k,
-            num_tx, num_rx, num_candidates, order, confidence_threshold,
-        )
+        return full_paths, mask, path_candidates, k
 
     if smooth:
         full_paths, ray_origins, ray_directions, checks = _geometric_checks(
@@ -214,10 +248,7 @@ def trace_path_candidates(
         )
         if active_rays is not None:
             mask = mask * active_rays
-        return _assemble_traced_paths(
-            full_paths, mask, path_candidates, interaction_types, k,
-            num_tx, num_rx, num_candidates, order, confidence_threshold,
-        )
+        return full_paths, mask, path_candidates, k
 
     full_paths, ray_origins, ray_directions, alive = unfused_blockage_inputs(
         tx_vertices,
@@ -242,10 +273,7 @@ def trace_path_candidates(
     mask = alive & ~blocked
     if active_rays is not None:
         mask = mask & active_rays
-    return _assemble_traced_paths(
-        full_paths, mask, path_candidates, interaction_types, k,
-        num_tx, num_rx, num_candidates, order, confidence_threshold,
-    )
+    return full_paths, mask, path_candidates, k
 
 
 def _segment_endpoint_ids(path_candidates: torch.Tensor, order: int, k: int) -> torch.Tensor:
@@ -392,27 +420,40 @@ def _assemble_traced_paths(
     device = path_candidates.device
     dtype = path_candidates.dtype
     shape = (num_tx, num_rx, num_candidates)
+    rows, types = candidate_rows(path_candidates, interaction_types, k)
     tx_objects = torch.arange(num_tx, dtype=dtype, device=device)[:, None, None, None]
     rx_objects = torch.arange(num_rx, dtype=dtype, device=device)[None, :, None, None]
     objects = torch.cat(
         (
             tx_objects.expand(*shape, 1),
-            path_candidates[:, ::k].expand(*shape, order),
+            rows.expand(*shape, order),
             rx_objects.expand(*shape, 1),
         ),
         dim=-1,
     )
-    if interaction_types is None:
-        out_types = torch.zeros((*shape, order), dtype=torch.int32, device=device)
-    else:
-        out_types = interaction_types.expand(*shape, order)
     return TracedPaths(
         full_paths,
         objects,
         mask=mask,
-        interaction_types=out_types,
+        interaction_types=types.expand(*shape, order),
         confidence_threshold=confidence_threshold,
     )
+
+
+def candidate_rows(
+    path_candidates: torch.Tensor, interaction_types: torch.Tensor | None, k: int = 1
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each candidate's object and interaction type per bounce, ``[C, order]`` each.
+
+    What a traced path's ``objects`` (between its TX and its RX) and its
+    ``interaction_types`` hold, before they are expanded over the TX and
+    the RX. ``path_candidates`` takes ``k`` triangles a mirror (2 for quads,
+    as :func:`candidate_geometry` expands them); no types means reflections.
+    """
+    rows = path_candidates[:, ::k]
+    if interaction_types is None:
+        return rows, torch.zeros(rows.shape, dtype=torch.int32, device=rows.device)
+    return rows, interaction_types
 
 
 class AbstractPathSolver(abc.ABC):

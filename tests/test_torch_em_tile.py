@@ -1,0 +1,253 @@
+"""The EM tile kernel's plain twin against ``complex_amplitudes``, and the coverage tile's routing, on the CPU.
+
+``ops._em.em_tile_sum_reference`` is the contract of ``csrc/em.cu`` (held
+against the twin on the card in ``tests/test_torch_gpu.py``): a traced
+tile's per-pixel amplitude sum from its vertices, mask and per-candidate
+rows. Here the twin is held against ``complex_amplitudes`` on a
+``TracedPaths`` built by hand, over the cases the kernel branches on.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from differt_tpu_torch import coverage, ops
+from differt_tpu_torch.em import HWDipolePattern
+from differt_tpu_torch.geometry import Mesh, Scene, TracedPaths, generate_path_candidates
+from differt_tpu_torch.ops import _em
+
+from . import torch_parity  # noqa: F401  (warms the CPU transcendentals)
+
+FREQUENCY = 2.4e9
+NUM_TX, NUM_RX, NUM_CAND = 2, 5, 7
+
+
+def _mesh(face_materials: str) -> Mesh:
+    """A walled box (10 triangles) with no, in-range or out-of-range face materials (3 materials)."""
+    mesh = Mesh.box(20.0, 10.0, 6.0, with_top=False, device="cpu")
+    rng = np.random.default_rng(3)
+    if face_materials == "set":
+        mats = rng.integers(0, 3, mesh.num_triangles)
+    elif face_materials == "out_of_range":  # clamped to the table: below 0 and beyond its end
+        mats = rng.choice([-2, 0, 1, 2, 3, 7], mesh.num_triangles)
+    else:
+        return mesh
+    return dataclasses.replace(mesh, face_materials=torch.from_numpy(mats))
+
+
+def _tile(order: int, seed: int = 0) -> dict:
+    """A tile as the trace writes it: vertices and mask in [T, C, R] memory, seen [T, R, C]; rows per candidate."""
+    rng = np.random.default_rng(seed + order)
+    verts = rng.uniform(-40.0, 40.0, (NUM_TX, NUM_CAND, NUM_RX, order + 2, 3)).astype(np.float32)
+    mask = rng.random((NUM_TX, NUM_CAND, NUM_RX)) < 0.6
+    return {
+        "vertices": torch.from_numpy(verts).transpose(1, 2),
+        "mask": torch.from_numpy(mask).transpose(1, 2),
+        "objects": torch.from_numpy(rng.integers(0, 10, (NUM_CAND, order))),
+        "types": torch.zeros((NUM_CAND, order), dtype=torch.int32),
+    }
+
+
+def _materials(thickness: str) -> dict:
+    kw = {"eta_r": torch.tensor([5.24, 1.0, 3.0]), "conductivity": torch.tensor([0.1, 1e7, 0.02])}
+    if thickness == "slab":  # a slab, a half-space (negative) and a thin slab
+        kw["thickness"] = torch.tensor([0.2, -1.0, 0.01])
+    return kw
+
+
+def _plain(tile: dict, mesh: Mesh, coherent: bool, **materials) -> torch.Tensor:
+    """``complex_amplitudes`` on a TracedPaths built by hand, summed per pixel."""
+    order = tile["objects"].shape[1]
+    shape = (NUM_TX, NUM_RX, NUM_CAND)
+    objects = torch.cat(
+        (
+            torch.full((*shape, 1), 7),
+            tile["objects"].expand(*shape, order),
+            torch.full((*shape, 1), 9),
+        ),
+        dim=-1,
+    )
+    paths = TracedPaths(
+        tile["vertices"],
+        objects,
+        mask=tile["mask"],
+        interaction_types=tile["types"].expand(*shape, order).clone(),
+    )
+    a = coverage.complex_amplitudes(paths, Scene(mesh=mesh), FREQUENCY, **materials)
+    return a.sum(dim=-1) if coherent else (torch.abs(a) ** 2).sum(dim=-1)
+
+
+def _twin(tile: dict, mesh: Mesh, coherent: bool, **materials) -> torch.Tensor:
+    return _em.em_tile_sum_reference(
+        tile["vertices"], tile["mask"], tile["objects"], tile["types"], mesh, FREQUENCY,
+        coherent=coherent, **materials,
+    )
+
+
+@pytest.mark.parametrize("thickness", ["none", "slab"])
+@pytest.mark.parametrize("face_materials", ["none", "set", "out_of_range"])
+@pytest.mark.parametrize("coherent", [True, False], ids=["coherent", "power"])
+@pytest.mark.parametrize("order", [0, 1, 2, 3])
+def test_twin_is_complex_amplitudes_summed(order, coherent, face_materials, thickness) -> None:
+    tile, mesh, materials = _tile(order), _mesh(face_materials), _materials(thickness)
+    got = _twin(tile, mesh, coherent, **materials)
+    want = _plain(tile, mesh, coherent, **materials)
+    assert got.shape == (NUM_TX, NUM_RX)
+    assert got.dtype == (torch.complex64 if coherent else torch.float32)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert torch.isfinite(torch.view_as_real(got) if coherent else got).all()
+    assert bool((got != 0).any())
+
+
+def test_out_of_range_materials_read_the_table_clamped() -> None:
+    tile, materials = _tile(2), _materials("slab")
+    mesh = _mesh("out_of_range")
+    clamped = dataclasses.replace(mesh, face_materials=mesh.face_materials.clamp(0, 2))
+    torch.testing.assert_close(
+        _twin(tile, mesh, True, **materials), _twin(tile, clamped, True, **materials), rtol=0, atol=0
+    )
+
+
+@pytest.mark.parametrize("coherent", [True, False], ids=["coherent", "power"])
+def test_a_padded_bounce_is_passed_over(coherent) -> None:
+    # Candidates 1 and 4 are order-1 chains padded to order 2 (object -1, type -1 at bounce 1);
+    # candidate 2's first bounce has a type the chain passes over (not a reflection).
+    tile, mesh, materials = _tile(2), _mesh("set"), _materials("slab")
+    tile["objects"][[1, 4], 1] = -1
+    tile["types"][[1, 4], 1] = -1
+    tile["types"][2, 0] = 2
+    got = _twin(tile, mesh, coherent, **materials)
+    torch.testing.assert_close(got, _plain(tile, mesh, coherent, **materials), rtol=0, atol=0)
+    # A passed-over bounce reads no face: another object there changes nothing ...
+    other = {**tile, "objects": tile["objects"].clone()}
+    other["objects"][[1, 4], 1] = 5
+    other["objects"][2, 0] = 6
+    torch.testing.assert_close(_twin(other, mesh, coherent, **materials), got, rtol=0, atol=0)
+    # ... and the same bounces taken as reflections change the sum.
+    reflected = {**other, "types": torch.zeros_like(tile["types"])}
+    assert not torch.equal(_twin(reflected, mesh, coherent, **materials), got)
+
+
+@pytest.mark.parametrize("fault", ["inf", "nan", "zero_segment", "short_segment"])
+def test_dummy_paths_weigh_nothing(fault) -> None:
+    # Valid paths whose geometry is not usable contribute 0, whatever their mask says.
+    tile, mesh, materials = _tile(2), _mesh("set"), _materials("none")
+    verts = tile["vertices"].transpose(1, 2).clone()  # [T, C, R, ...] memory
+    picks = (torch.tensor([0, 1, 1]), torch.tensor([2, 0, 5]), torch.tensor([1, 3, 4]))
+    if fault == "inf":
+        verts[picks + (2, 0)] = float("inf")
+    elif fault == "nan":
+        verts[picks + (1,)] = float("nan")
+    elif fault == "zero_segment":  # a bounce on the RX
+        verts[picks + (2,)] = verts[picks + (3,)]
+    else:  # a first segment of squared length 2.5e-13 m^2, below the chain's 1e-12
+        verts[picks + (0,)] = 0.5
+        verts[picks + (1,)] = torch.tensor([0.5 + 5e-7, 0.5, 0.5])
+    tile["vertices"] = verts.transpose(1, 2)
+    mask = tile["mask"].transpose(1, 2).clone()
+    mask[picks] = True
+    tile["mask"] = mask.transpose(1, 2)
+    got = _twin(tile, mesh, True, **materials)
+    torch.testing.assert_close(got, _plain(tile, mesh, True, **materials), rtol=0, atol=0)
+    masked = dict(tile)
+    mask = mask.clone()
+    mask[picks] = False
+    masked["mask"] = mask.transpose(1, 2)
+    torch.testing.assert_close(got, _twin(masked, mesh, True, **materials), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("coherent", [True, False], ids=["coherent", "power"])
+def test_an_all_invalid_tile_sums_to_zero(coherent) -> None:
+    tile = _tile(1)
+    tile["mask"] = torch.zeros_like(tile["mask"])
+    got = _twin(tile, _mesh("none"), coherent, **_materials("slab"))
+    assert got.shape == (NUM_TX, NUM_RX) and not got.any()
+
+
+def test_the_kernel_wrapper_takes_cuda_tensors_only() -> None:
+    tile = _tile(1)
+    launches = _em.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        _em.em_tile_sum(
+            tile["vertices"], tile["mask"], tile["objects"], tile["types"], _mesh("none"),
+            FREQUENCY, **_materials("none"),
+        )
+    assert _em.LAUNCHES == launches
+
+
+def _box_tile(case: str) -> dict:
+    """_coverage_tile's arguments on a walled box, order 1, a padded chunk."""
+    mesh = Mesh.box(20.0, 10.0, 6.0, with_top=False, device="cpu").set_materials("Concrete")
+    tx = torch.tensor([[-5.0, 0.5, 1.0]])
+    if case == "grad":
+        tx = tx.clone().requires_grad_()
+    scene = Scene(transmitters=tx, mesh=mesh).with_receivers_grid(4, 2, height=1.0)
+    cand = generate_path_candidates(mesh.num_triangles, 1, device="cpu")
+    return {
+        "scene": scene,
+        "tx": tx,
+        "rx_tile": scene.receivers.reshape(-1, 3),
+        "cand_chunk": cand,
+        "itype_chunk": torch.zeros_like(cand, dtype=torch.int32),
+        "chunk_valid": torch.arange(cand.shape[0]) < cand.shape[0] - 1,
+        "frequency": torch.tensor(FREQUENCY),
+        "eta_r": torch.tensor([5.24]),
+        "conductivity": torch.tensor([0.1]),
+        "thickness": None,
+        "coherent": True,
+        "megakernel": None,
+        "smoothing_factor": 20.0 if case == "float_mask" else None,
+        "tx_pattern": (
+            HWDipolePattern(FREQUENCY, direction=(0.0, 0.0, 1.0), center=tx[0], device="cpu")
+            if case == "pattern"
+            else None
+        ),
+    }
+
+
+@pytest.mark.parametrize("case", ["no_gradient", "grad", "pattern", "float_mask", "cpu"])
+def test_coverage_tile_routing(case, monkeypatch) -> None:
+    """The tile takes the kernel only where no gradient, pattern or confidence needs the plain chain.
+
+    On the CPU nothing takes it. For the other cases the CPU tensors pass
+    for the card's (the backend reads "cuda") and the kernel's wrapper is a
+    spy that runs the twin: only the no-gradient tile reaches it, and its
+    sums are the plain chain's.
+    """
+    kw = _box_tile(case)
+    calls = []
+    want = coverage._coverage_tile(**kw)  # the plain chain: nothing patched
+    if case != "cpu":
+        monkeypatch.setattr(ops, "get_backend", lambda device=None: "cuda")
+
+        def spy(*args, **kwargs):
+            calls.append(args[0].shape)
+            return _em.em_tile_sum_reference(*args, **kwargs)
+
+        monkeypatch.setattr(_em, "em_tile_sum", spy)
+    launches = _em.LAUNCHES
+    got = coverage._coverage_tile(**kw)
+    assert _em.LAUNCHES == launches
+    assert len(calls) == (1 if case == "no_gradient" else 0)
+    assert got.requires_grad == (case == "grad")
+    torch.testing.assert_close(got.detach(), want.detach(), rtol=0, atol=0)
+    assert bool((got != 0).any())
+
+
+def test_coverage_tile_takes_the_plain_chain_when_a_material_or_the_mesh_needs_a_gradient(monkeypatch) -> None:
+    monkeypatch.setattr(ops, "get_backend", lambda device=None: "cuda")
+    monkeypatch.setattr(_em, "em_tile_sum", lambda *a, **k: pytest.fail("the kernel was taken"))
+    kw = _box_tile("no_gradient")
+    kw["eta_r"] = kw["eta_r"].clone().requires_grad_()
+    assert coverage._coverage_tile(**kw).requires_grad
+    kw = _box_tile("no_gradient")
+    mesh = kw["scene"].mesh
+    kw["scene"] = dataclasses.replace(
+        kw["scene"], mesh=dataclasses.replace(mesh, vertices=mesh.vertices.clone().requires_grad_())
+    )
+    assert coverage._coverage_tile(**kw).requires_grad
+    with torch.no_grad():  # no gradient can be asked for: the kernel, here its spy's failure
+        with pytest.raises(pytest.fail.Exception):
+            coverage._coverage_tile(**kw)

@@ -831,3 +831,171 @@ def test_sharded_power_map_on_a_world_of_one_equals_power_map() -> None:
         dist.destroy_process_group()
     want = coverage.power_map(scene, 2.4e9, order=1)
     assert torch.equal(got, want) and float(want.max()) > 0.0
+
+
+def _em_tile(device, order: int, num_cand: int, seed: int, num_rx: int = 4_096) -> dict:
+    """A synthetic tile of the XL map's shape ([1, num_rx, num_cand], the trace's memory layout).
+
+    Random paths over +-200 m and 0-60 m (phases of 10^4 rad, as on the
+    city), a third of them valid, with bounces of other types and padded
+    ones (object -1), face materials in and out of the three-material
+    table, and a slab, a half-space and a metal.
+    """
+    gen = torch.Generator(device=device).manual_seed(seed)
+    mesh = scenes.urban_scene(4, 4, device=device).mesh
+    num_tri = mesh.num_triangles
+    lo = torch.tensor([-200.0, -200.0, 0.0], device=device)
+    span = torch.tensor([400.0, 400.0, 60.0], device=device)
+    verts = lo + span * torch.rand((1, num_cand, num_rx, order + 2, 3), generator=gen, device=device)
+    mask = torch.rand((1, num_cand, num_rx), generator=gen, device=device) < 1.0 / 3.0
+    objects = torch.randint(0, num_tri, (num_cand, order), generator=gen, device=device)
+    types = torch.zeros((num_cand, order), dtype=torch.int32, device=device)
+    if order > 1:
+        objects[::7, -1] = -1
+        types[::7, -1] = -1
+        types[3::11, 0] = 2
+    materials = torch.randint(-1, 5, (num_tri,), generator=gen, device=device)
+    return {
+        "vertices": verts.transpose(1, 2),
+        "mask": mask.transpose(1, 2),
+        "objects": objects,
+        "interaction_types": types,
+        "mesh": dataclasses.replace(mesh, face_materials=materials),
+        "frequency": torch.tensor(2.4e9, device=device),
+        "eta_r": torch.tensor([5.24, 3.0, 1.0], device=device),
+        "conductivity": torch.tensor([0.12, 0.02, 1e7], device=device),
+        "thickness": torch.tensor([0.2, -1.0, 0.05], device=device),
+    }
+
+
+def _em_sums(fn, tile: dict, coherent: bool) -> torch.Tensor:
+    args = [tile[k] for k in ("vertices", "mask", "objects", "interaction_types", "mesh", "frequency")]
+    return fn(
+        *args, eta_r=tile["eta_r"], conductivity=tile["conductivity"], thickness=tile["thickness"],
+        coherent=coherent,
+    )
+
+
+@pytest.mark.parametrize(
+    ("order", "num_cand", "coherent"),
+    [(1, 4_096, True), (2, 4_096, True), (2, 4_096, False), (4, 1_024, True)],
+)
+def test_em_kernel_matches_its_twin(order: int, num_cand: int, coherent: bool) -> None:
+    """``csrc/em.cu`` against ``complex_amplitudes`` summed, on the card, at the XL map's tile width.
+
+    The kernel rounds every real operation as the plain chain does (the
+    phase, of 10^4 rad, to the bit); complex products, quotients and roots
+    may round apart by an ulp (PyTorch's build contracts them into fused
+    multiply-adds), and the sums over 1,365 valid paths a pixel run in
+    another order: float32 closeness, 1e-4 of the largest sum. The sum
+    order is fixed, so two launches give the same bits.
+    """
+    from differt_tpu_torch.ops import _em
+
+    device = cuda_or_skip()
+    tile = _em_tile(device, order, num_cand, seed=100 + order)
+    launches = _em.LAUNCHES
+    got = _em_sums(_em.em_tile_sum, tile, coherent)
+    again = _em_sums(_em.em_tile_sum, tile, coherent)
+    torch.cuda.synchronize()
+    assert _em.LAUNCHES == launches + 2
+    want = _em_sums(_em.em_tile_sum_reference, tile, coherent)
+    assert torch.equal(got, again)
+    scale = float(want.abs().max())
+    assert scale > 0.0
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+
+
+def test_em_kernel_takes_a_tile_with_no_valid_path_and_many_transmitters() -> None:
+    from differt_tpu_torch.ops import _em
+
+    device = cuda_or_skip()
+    tile = _em_tile(device, 2, 64, seed=7, num_rx=100)
+    tile["vertices"] = tile["vertices"].expand(3, -1, -1, -1, -1)  # three TX, stride 0
+    tile["mask"] = tile["mask"].expand(3, -1, -1).clone()
+    tile["mask"][1] = False
+    got = _em_sums(_em.em_tile_sum, tile, True)
+    want = _em_sums(_em.em_tile_sum_reference, tile, True)
+    assert not got[1].any() and bool(got[0].abs().max() > 0)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+def _near_city(device, grid: int) -> tuple[Scene, torch.Tensor]:
+    """urban_scene(8, 8) with its TX at 40 m, a grid around it, and the order-2 candidates of the 40 triangles nearest it."""
+    mesh = scenes.urban_scene(8, 8, device=device).mesh.set_materials("Concrete")
+    tx = torch.tensor([[10.0, 5.0, 40.0]], device=device)
+    centres = mesh.triangle_vertices.mean(dim=1)
+    near = torch.argsort(((centres - tx) ** 2).sum(-1))[:40]
+    pairs = torch.cartesian_prod(near, near)
+    pairs = pairs[pairs[:, 0] != pairs[:, 1]]
+    scene = Scene(transmitters=tx, mesh=mesh).with_receivers_grid(grid, grid, height=1.5)
+    return scene, pairs
+
+
+def _lit_db_gap(got: torch.Tensor, want: torch.Tensor, window_db: float = 40.0) -> float:
+    """Largest |dB| difference over the pixels that either map lights within ``window_db`` of the plain map's brightest."""
+    got, want = got.double().cpu(), want.double().cpu()
+    floor = float(want.max()) * 10.0 ** (-window_db / 10.0)
+    lit = (want >= floor) | (got >= floor)
+    ratio = got[lit].clamp(min=1e-300) / want[lit].clamp(min=1e-300)
+    return float((10.0 * torch.log10(ratio)).abs().max())
+
+
+@pytest.mark.parametrize("coherent", [True, False], ids=["coherent", "power"])
+def test_power_map_chunked_fused_against_plain(coherent: bool, monkeypatch) -> None:
+    """The map with the fused EM tile against the plain chain (the fused path forced off).
+
+    The two sum the same paths in another order, with complex operations
+    that may round an ulp apart: within 0.05 dB on every lit pixel.
+    """
+    from differt_tpu_torch import coverage
+    from differt_tpu_torch.ops import _em
+
+    device = cuda_or_skip()
+    scene, pairs = _near_city(device, 64)
+    kw = {"path_candidates": pairs, "candidate_chunk": 512, "rx_chunk": 1_024, "coherent": coherent}
+    tiles = -(-pairs.shape[0] // 512) * 4
+    launches = _em.LAUNCHES
+    got = coverage.power_map_chunked(scene, 2.4e9, order=2, **kw)
+    assert _em.LAUNCHES == launches + tiles
+    monkeypatch.setattr(coverage, "_fused_em", lambda *args: False)
+    want = coverage.power_map_chunked(scene, 2.4e9, order=2, **kw)
+    assert _em.LAUNCHES == launches + tiles
+    assert float(want.max()) > 0.0
+    assert _lit_db_gap(got, want) <= 0.05
+
+
+def test_streamed_step_pass1_fused_against_plain(monkeypatch) -> None:
+    """The step's loss and update with pass 1 on the fused EM tile against the plain chain.
+
+    Pass 1's pixel sums feed the loss and pass 3's cotangents; they differ
+    from the plain chain's by float32 rounding alone: the loss within 1e-5
+    of its value, each update within 3e-3 of its norm.
+    """
+    from differt_tpu_torch import coverage
+    from differt_tpu_torch.ops import _em
+    from differt_tpu_torch.parallel import streamed_placement_step
+
+    device = cuda_or_skip()
+    scene, pairs = _near_city(device, 32)
+    kw = {
+        "tx": scene.transmitters,
+        "eta_r": torch.tensor([5.24], device=device),
+        "conductivity": torch.tensor([0.12], device=device),
+        "path_candidates": [generate_path_candidates(scene.mesh.num_primitives, 1, device=device), pairs],
+        "candidate_chunk": 512,
+        "rx_chunk": 512,
+    }
+    launches = _em.LAUNCHES
+    got = streamed_placement_step(scene, 2.4e9, **kw)
+    fused = _em.LAUNCHES - launches
+    assert fused > 0  # pass 1's tiles; pass 3's run the plain chain
+    monkeypatch.setattr(coverage, "_fused_em", lambda *args: False)
+    want = streamed_placement_step(scene, 2.4e9, **kw)
+    assert _em.LAUNCHES - launches == fused
+    assert abs(float(got[2]) - float(want[2])) <= 1e-5 * abs(float(want[2]))
+    for name, new, plain in (("tx", got[0], want[0]), ("eta_r", got[1], want[1])):
+        change, change_plain = kw[name] - new, kw[name] - plain
+        norm = float(torch.linalg.vector_norm(change_plain.double()))
+        assert norm > 0.0, name
+        assert float(torch.linalg.vector_norm((change - change_plain).double())) <= 3e-3 * norm, name
