@@ -9,7 +9,9 @@ to the transmitters, the materials and the mesh's vertices; with a
 they flow through path validity too.
 """
 
+import dataclasses
 import math
+from typing import Any
 
 import torch
 
@@ -372,28 +374,146 @@ def power_map(
     return power.reshape(*scene.transmitters.shape[:-1], *scene.receivers.shape[:-1])
 
 
-def _fused_em(vertices: torch.Tensor, mask: torch.Tensor, tx_pattern, inputs) -> bool:
+def _fused_em(device: torch.device, order: int, hard: bool, tx_pattern, inputs) -> bool:
     """Whether a coverage tile's EM chain and pixel sum run as one kernel.
 
     Where the tile's paths lie on the card (the "cuda" backend, or "auto"
     on CUDA tensors), no input can be asked for a gradient, there is no
-    antenna pattern, the mask is hard and the order is one the kernel
-    takes. A gradient needs each path's amplitude in a graph, which the
-    plain chain keeps; a smoothed mask and a pattern stay with it too.
+    antenna pattern, the mask is ``hard`` (bool) and the order is one the
+    kernel takes. A gradient needs each path's amplitude in a graph, which
+    the plain chain keeps; a smoothed mask and a pattern stay with it too.
     """
     from .ops import get_backend
     from .ops._trace import MAX_ORDER
 
     return (
-        get_backend(vertices.device) == "cuda"
+        get_backend(device) == "cuda"
         and tx_pattern is None
-        and mask.dtype == torch.bool
-        and vertices.shape[-2] - 2 <= MAX_ORDER
+        and hard
+        and order <= MAX_ORDER
         and not (
             torch.is_grad_enabled()
             and any(isinstance(x, torch.Tensor) and x.requires_grad for x in inputs)
         )
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class _TilePlan:
+    """What the kernels of a fused tile read of one candidate set and call, laid out once (:func:`_tile_plan`).
+
+    Each per-candidate tensor spans the whole padded set, so that chunk
+    ``lo:hi`` is a contiguous slice of it, equal bit for bit to the chunk's
+    own layout.
+    """
+
+    num_candidates: int  # before padding: candidates from here on are masked out
+    mirrors: torch.Tensor  # [C, order, 6], ops._trace.trace_layout
+    cand_tris: torch.Tensor  # [C, tpm * order, 9]
+    objects: torch.Tensor  # [C, order] int64, ops._em.em_rows
+    types: torch.Tensor  # [C, order] int32
+    valid: torch.Tensor  # [C]: not padding
+    active_rays: torch.Tensor | None  # [C]: every triangle active (None: the mesh has no mask)
+    bvh: Any
+    em_inputs: tuple  # normals, face materials, material table, frequency: ops._em.em_mesh_inputs
+
+
+def _tile_plan(
+    mesh,
+    candidates: torch.Tensor,
+    interaction_types: torch.Tensor,
+    num_candidates: int,
+    frequency: torch.Tensor,
+    eta_r: torch.Tensor,
+    conductivity: torch.Tensor,
+    thickness: torch.Tensor | None,
+    *,
+    megakernel: bool | None,
+    smoothing_factor,
+    tx_pattern,
+    inputs,
+) -> _TilePlan | None:
+    """A plan for the tiles of a padded candidate set in one call, or None where they take the plain route.
+
+    Every tile of the set takes the fused trace and the EM kernel where
+    :func:`_fused_em` holds of the call's ``inputs`` (those a tile's trace
+    and chain read), the masks are hard and the trace is not forced
+    unfused; then each tile makes only the launches that depend on its
+    receivers (:func:`_planned_tile`). The layout runs in the span
+    ``tile.prep``, once per set and call.
+    """
+    order = candidates.shape[1]
+    device = mesh.device
+    if not (
+        megakernel is not False
+        and smoothing_factor is None
+        and order >= 1
+        and _fused_em(device, order, True, tx_pattern, inputs)
+    ):
+        return None
+    from .ops._em import em_mesh_inputs, em_rows
+    from .ops._trace import trace_layout
+    from .rt._solvers import candidate_geometry, candidate_rows
+
+    with annotate("tile.prep"):
+        em_inputs = em_mesh_inputs(mesh, frequency, eta_r, conductivity, thickness, device)
+        path_candidates, triangle_vertices, mirror_vertices, mirror_normals = candidate_geometry(
+            mesh, candidates, normals=em_inputs[0]
+        )
+        k = 2 if mesh.assume_quads else 1
+        mirrors, cand_tris = trace_layout(mirror_vertices, mirror_normals, triangle_vertices)
+        objects, types = em_rows(*candidate_rows(path_candidates, interaction_types, k), device)
+        return _TilePlan(
+            num_candidates=num_candidates,
+            mirrors=mirrors,
+            cand_tris=cand_tris,
+            objects=objects,
+            types=types,
+            valid=torch.arange(candidates.shape[0], device=device) < num_candidates,
+            active_rays=None if mesh.mask is None else mesh.mask[path_candidates].all(dim=-1),
+            bvh=mesh.bvh,
+            em_inputs=em_inputs,
+        )
+
+
+def _planned_tile(
+    plan: _TilePlan, tx: torch.Tensor, rx_tile: torch.Tensor, lo: int, hi: int, coherent: bool
+) -> torch.Tensor:
+    """:func:`_coverage_tile`'s fused branch on candidates ``lo:hi`` of a plan, with the same bits.
+
+    The trace and the EM kernel read the plan's slices; the candidates'
+    masks are applied only where they mask something: the mesh's where it
+    has one, the padding's on the chunk that holds some.
+    """
+    from .ops._em import em_laid_out
+    from .ops._trace import trace_laid_out
+    from .rt._solvers import kernel_tolerances
+
+    with annotate("tile"):
+        epsilon, hit_tol, min_len = kernel_tolerances()
+        vertices, mask = trace_laid_out(
+            tx.contiguous(),
+            rx_tile.contiguous(),
+            plan.mirrors[lo:hi],
+            plan.cand_tris[lo:hi],
+            None,
+            None,
+            order=plan.mirrors.shape[1],
+            epsilon=epsilon,
+            hit_tol=hit_tol,
+            min_len=min_len,
+            bvh=plan.bvh,
+        )
+        # [tx, cand, rx] -> [tx, rx, cand]
+        vertices, mask = vertices.transpose(1, 2), mask.transpose(1, 2)
+        if plan.active_rays is not None:
+            mask = mask & plan.active_rays[lo:hi]
+        if hi > plan.num_candidates:
+            mask = mask & plan.valid[lo:hi]
+        with annotate("em"):
+            return em_laid_out(
+                vertices, mask, plan.objects[lo:hi], plan.types[lo:hi], *plan.em_inputs, coherent=coherent
+            )
 
 
 def _coverage_tile(
@@ -441,7 +561,7 @@ def _coverage_tile(
         else:  # a confidence is weighted, not AND-ed
             mask = mask * chunk_valid.to(mask.dtype)
         inputs = (vertices, frequency, eta_r, conductivity, thickness, scene.mesh.vertices)
-        if _fused_em(vertices, mask, tx_pattern, inputs):
+        if _fused_em(vertices.device, vertices.shape[-2] - 2, mask.dtype == torch.bool, tx_pattern, inputs):
             from .ops._em import em_tile_sum
 
             objects, types = candidate_rows(triangles, itype_chunk, k)
@@ -542,31 +662,39 @@ def power_map_chunked(
         if pad_r:
             rx_all = torch.cat((rx_all, rx_all[:1].expand(pad_r, 3)))
 
+        plan = _tile_plan(
+            scene.mesh, candidates, itypes, num_candidates, frequency, eta_r, conductivity, thickness,
+            megakernel=megakernel,
+            smoothing_factor=smoothing_factor,
+            tx_pattern=tx_pattern,
+            inputs=(tx, rx_all, frequency, eta_r, conductivity, thickness, scene.mesh.vertices),
+        )
         out_tiles = []
         for r0 in range(0, rx_all.shape[0], rx_chunk):
             rx_tile = rx_all[r0 : r0 + rx_chunk]
             acc = None
             for lo in range(0, candidates.shape[0], candidate_chunk):
-                chunk_valid = (
-                    torch.arange(lo, lo + candidate_chunk, device=device) < num_candidates
-                )
-                part = _coverage_tile(
-                    scene,
-                    tx,
-                    rx_tile,
-                    candidates[lo : lo + candidate_chunk],
-                    itypes[lo : lo + candidate_chunk],
-                    chunk_valid,
-                    frequency,
-                    eta_r,
-                    conductivity,
-                    thickness,
-                    coherent,
-                    megakernel,
-                    batch_size,
-                    smoothing_factor,
-                    tx_pattern,
-                )
+                hi = lo + candidate_chunk
+                if plan is not None:
+                    part = _planned_tile(plan, tx, rx_tile, lo, hi, coherent)
+                else:
+                    part = _coverage_tile(
+                        scene,
+                        tx,
+                        rx_tile,
+                        candidates[lo:hi],
+                        itypes[lo:hi],
+                        torch.arange(lo, hi, device=device) < num_candidates,
+                        frequency,
+                        eta_r,
+                        conductivity,
+                        thickness,
+                        coherent,
+                        megakernel,
+                        batch_size,
+                        smoothing_factor,
+                        tx_pattern,
+                    )
                 acc = part if acc is None else acc + part
             out_tiles.append(acc)
 

@@ -109,7 +109,66 @@ def em_tile_sum(
     orders 0 to :data:`._trace.MAX_ORDER`. The vertices and the mask may
     take any strides over their TX, RX and candidate axes; the kernel reads
     them where they lie, which is coalesced in the trace's own layout. No
-    gradient flows through the result.
+    gradient flows through the result. Lays its inputs out
+    (:func:`em_rows`, :func:`em_mesh_inputs`) and launches
+    (:func:`em_laid_out`).
+    """
+    device = vertices.device
+    return em_laid_out(
+        vertices,
+        mask,
+        *em_rows(objects, interaction_types, device),
+        *em_mesh_inputs(mesh, frequency, eta_r, conductivity, thickness, device),
+        coherent=coherent,
+    )
+
+
+def em_rows(objects: torch.Tensor, interaction_types: torch.Tensor, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Candidates' objects and interaction types ``[C, k]`` as the kernel reads them: int64 and int32, contiguous.
+
+    Row by row, so a slice of a set's rows is the rows of the slice.
+    """
+    objects = objects.to(device=device, dtype=torch.int64).contiguous()
+    types = interaction_types.to(device=device, dtype=torch.int32).contiguous()
+    return objects, types
+
+
+def em_mesh_inputs(
+    mesh, frequency, eta_r, conductivity, thickness, device
+) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor, torch.Tensor]:
+    """What the kernel reads of the mesh and the call, which no tile changes.
+
+    The mesh's normals (float32) and face materials (int64, or None), the
+    material table (:func:`_material_table`) and the frequency (one float32
+    on the device).
+    """
+    normals = mesh.normals.to(torch.float32).contiguous()
+    face_materials = mesh.face_materials
+    if face_materials is not None:
+        face_materials = face_materials.to(torch.int64).contiguous()
+    frequency = torch.as_tensor(frequency, dtype=torch.float32, device=device)
+    table = _material_table(frequency, eta_r, conductivity, thickness, device)
+    return normals, face_materials, table, frequency
+
+
+def em_laid_out(
+    vertices: torch.Tensor,
+    mask: torch.Tensor,
+    objects: torch.Tensor,
+    types: torch.Tensor,
+    normals: torch.Tensor,
+    face_materials: torch.Tensor | None,
+    table: torch.Tensor,
+    frequency: torch.Tensor,
+    *,
+    coherent: bool,
+) -> torch.Tensor:
+    """The kernel on inputs laid out by :func:`em_rows` and :func:`em_mesh_inputs`: checks, one call.
+
+    The launch half of every call of the kernel: :func:`em_tile_sum`, and a
+    coverage tile whose rows and mesh inputs were laid out once for the
+    whole candidate set (``coverage._planned_tile``). Counted in
+    :data:`LAUNCHES`.
     """
     from ._rt import _check
     from ._trace import MAX_ORDER
@@ -132,16 +191,8 @@ def em_tile_sum(
     if mask.dtype != torch.bool or tuple(mask.shape) != (num_tx, num_rx, num_cand):
         msg = f"mask must be bool of shape {(num_tx, num_rx, num_cand)}, got {mask.dtype} {tuple(mask.shape)}."
         raise ValueError(msg)
-    objects = objects.to(device=device, dtype=torch.int64).contiguous()
-    types = interaction_types.to(device=device, dtype=torch.int32).contiguous()
     _check("objects", objects, torch.int64, (num_cand, order), device)
     _check("interaction_types", types, torch.int32, (num_cand, order), device)
-    normals = mesh.normals.to(torch.float32).contiguous()
-    face_materials = mesh.face_materials
-    if face_materials is not None:
-        face_materials = face_materials.to(torch.int64).contiguous()
-    frequency = torch.as_tensor(frequency, dtype=torch.float32, device=device)
-    table = _material_table(frequency, eta_r, conductivity, thickness, device)
 
     out = torch.empty(
         (num_tx, num_rx), dtype=torch.complex64 if coherent else torch.float32, device=device

@@ -269,7 +269,15 @@ class _TraceSpecular(torch.autograd.Function):
         if tx_vertices.device.type == "cpu":
             vertices, mask = trace_specular_reference(*args, **kw)
         else:
-            vertices, mask = _launch_checked(*args, **kw, bvh=bvh)
+            vertices, mask = trace_laid_out(
+                tx_vertices,
+                rx_vertices,
+                *trace_layout(mirror_vertices, mirror_normals, candidate_triangles),
+                triangle_vertices,
+                active_triangles,
+                **kw,
+                bvh=bvh,
+            )
         ctx.save_for_backward(tx_vertices, rx_vertices, mirror_vertices, mirror_normals)
         ctx.mark_non_differentiable(mask)
         return vertices, mask
@@ -292,45 +300,57 @@ class _TraceSpecular(torch.autograd.Function):
         return tuple(grads)
 
 
-def _launch_checked(
-    tx_vertices, rx_vertices, mirror_vertices, mirror_normals, candidate_triangles,
-    triangle_vertices, active_triangles, *, order, epsilon, hit_tol, min_len, bvh,
+def trace_layout(
+    mirror_vertices: torch.Tensor, mirror_normals: torch.Tensor, candidate_triangles: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Check the inputs, lay them out for the kernel and launch it once."""
-    device = tx_vertices.device
-    if device.type != "cuda":
-        msg = f"The trace kernel runs on CUDA tensors, not on {device}."
-        raise ValueError(msg)
-    num_tx, num_rx = tx_vertices.shape[0], rx_vertices.shape[0]
-    num_cand = mirror_vertices.shape[0]
-    tpm = candidate_triangles.shape[1] // order
-    if tpm not in (1, 2):
-        msg = f"Expected 1 or 2 candidate triangles per mirror, got {tpm}."
-        raise ValueError(msg)
-    f32 = torch.float32
-    _check("tx_vertices", tx_vertices, f32, (num_tx, 3), device)
-    _check("rx_vertices", rx_vertices, f32, (num_rx, 3), device)
-    _check("mirror_vertices", mirror_vertices, f32, (num_cand, order, 3), device)
-    _check("mirror_normals", mirror_normals, f32, (num_cand, order, 3), device)
-    _check(
-        "candidate_triangles",
-        candidate_triangles,
-        f32,
-        (num_cand, tpm * order, 3, 3),
-        device,
-    )
-    bvh = checked_bvh(triangle_vertices, active_triangles, bvh, device)
+    """The kernel's layout of ``[C, k, 3]`` mirrors and ``[C, tpm * k, 3, 3]`` candidate triangles.
 
-    vertices = torch.empty((num_tx, num_cand, num_rx, order + 2, 3), dtype=f32, device=device)
-    mask = torch.empty((num_tx, num_cand, num_rx), dtype=torch.bool, device=device)
-    if mask.numel() == 0:
-        return vertices, mask
+    Returns ``mirrors [C, k, 6]`` (each mirror's vertex and normal) and
+    ``cand_tris [C, tpm * k, 9]`` (each triangle's v0, e1, e2), contiguous.
+    Candidate by candidate, so a slice of a set's layout is the layout of
+    the slice, bit for bit.
+    """
     mirrors = torch.cat((mirror_vertices, mirror_normals), dim=-1).contiguous()
     v0 = candidate_triangles[..., 0, :]
     cand_tris = torch.cat(
         (v0, candidate_triangles[..., 1, :] - v0, candidate_triangles[..., 2, :] - v0),
         dim=-1,
     ).contiguous()
+    return mirrors, cand_tris
+
+
+def trace_laid_out(
+    tx_vertices, rx_vertices, mirrors, cand_tris, triangle_vertices, active_triangles, *,
+    order: int, epsilon: float, hit_tol: float, min_len: float, bvh,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Check the inputs laid out by :func:`trace_layout`, make fresh outputs and launch the kernel once.
+
+    Returns vertices ``[Ntx, C, Nrx, k + 2, 3]`` and mask ``[Ntx, C, Nrx]``,
+    as :func:`trace_specular_reference`; no gradient. The launch half of
+    every call of the kernel: :func:`trace_specular_cuda`'s forward, and a
+    coverage tile whose candidates were laid out once for the whole set
+    (``coverage._planned_tile``).
+    """
+    device = tx_vertices.device
+    if device.type != "cuda":
+        msg = f"The trace kernel runs on CUDA tensors, not on {device}."
+        raise ValueError(msg)
+    num_tx, num_rx, num_cand = tx_vertices.shape[0], rx_vertices.shape[0], mirrors.shape[0]
+    tpm = cand_tris.shape[1] // order
+    if tpm not in (1, 2):
+        msg = f"Expected 1 or 2 candidate triangles per mirror, got {tpm}."
+        raise ValueError(msg)
+    f32 = torch.float32
+    _check("tx_vertices", tx_vertices, f32, (num_tx, 3), device)
+    _check("rx_vertices", rx_vertices, f32, (num_rx, 3), device)
+    _check("mirrors", mirrors, f32, (num_cand, order, 6), device)
+    _check("cand_tris", cand_tris, f32, (num_cand, tpm * order, 9), device)
+    bvh = checked_bvh(triangle_vertices, active_triangles, bvh, device)
+
+    vertices = torch.empty((num_tx, num_cand, num_rx, order + 2, 3), dtype=f32, device=device)
+    mask = torch.empty((num_tx, num_cand, num_rx), dtype=torch.bool, device=device)
+    if mask.numel() == 0:
+        return vertices, mask
     launch_trace(
         tx_vertices, rx_vertices, mirrors, cand_tris, bvh, order, tpm,
         epsilon, hit_tol, min_len, vertices, mask,

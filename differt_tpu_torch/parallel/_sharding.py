@@ -24,7 +24,7 @@ from collections.abc import Iterator, Sequence
 import torch
 import torch.distributed as dist
 
-from ..coverage import _coverage_tile, _resolve_materials, received_power
+from ..coverage import _coverage_tile, _planned_tile, _resolve_materials, _tile_plan, received_power
 from ..em import z_0
 from ..geometry import Scene, TracedPaths, generate_path_candidates
 from ..profiling import annotate
@@ -474,10 +474,12 @@ def _streamed_setup(
 
     Receivers are padded to whole tiles of ``rx_chunk`` with copies of the
     first, each order's candidates to whole chunks with copies of its
-    first (masked out by the tile's ``valid``). ``path_candidates`` is one
-    ``[C, order]`` tensor or a sequence of them, one per order: every
-    order's chunks go through the same tile step, so the accumulated
-    amplitude is the coherent sum over the orders.
+    first (masked out by the tile's ``valid``: :func:`_chunk`).
+    ``path_candidates`` is one ``[C, order]`` tensor or a sequence of them,
+    one per order, each a set of ``sets``: every order's chunks go through
+    the same tile step, so the accumulated amplitude is the coherent sum
+    over the orders. ``tiles()`` yields each tile's RX row and tile, and
+    its set and candidate range.
 
     With a ``mesh`` the scene, TX and materials are replicated (detached:
     the step sums the ranks' gradients itself) and each RX tile is padded to
@@ -501,7 +503,7 @@ def _streamed_setup(
     cand_list = (
         list(path_candidates) if isinstance(path_candidates, (list, tuple)) else [path_candidates]
     )
-    prepared = []
+    sets = []  # (padded candidates, how many are real, chunk)
     for cand in cand_list:
         cand = torch.as_tensor(cand, device=device)
         n = cand.shape[0]
@@ -509,7 +511,7 @@ def _streamed_setup(
         pad = -n % chunk
         if pad:
             cand = torch.cat((cand, cand[:1].expand(pad, -1)))
-        prepared.append((cand, n, chunk))
+        sets.append((cand, n, chunk))
 
     scene_tile = dataclasses.replace(scene, receivers=rx_all.new_zeros((0, 3)))
     if mesh is not None:
@@ -518,40 +520,57 @@ def _streamed_setup(
             (scene_tile, frequency, *detached), mesh
         )
 
-    def tiles() -> Iterator[tuple[int, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]]:
+    def tiles() -> Iterator[tuple[int, torch.Tensor, int, int, int]]:
         for row, r0 in enumerate(range(0, rx_all.shape[0], rx_chunk)):
             rx_tile = rx_all[r0 : r0 + rx_chunk]
             if mesh is not None:
                 rx_tile = shard_along(_pad_rows(rx_tile, mesh.size), mesh)
-            for cand, n, chunk in prepared:
+            for s, (cand, _, chunk) in enumerate(sets):
                 for c0 in range(0, cand.shape[0], chunk):
-                    part = cand[c0 : c0 + chunk]
-                    yield (
-                        row,
-                        rx_tile,
-                        part,
-                        torch.zeros_like(part, dtype=torch.int32),
-                        torch.arange(c0, c0 + chunk, device=device) < n,
-                    )
+                    yield row, rx_tile, s, c0, c0 + chunk
 
-    return frequency, tx, eta_r, conductivity, thickness, scene_tile, tiles, num_rx, rx_chunk, pad_r
+    return frequency, tx, eta_r, conductivity, thickness, scene_tile, sets, tiles, num_rx, rx_chunk, pad_r
+
+
+def _chunk(sets, s: int, lo: int, hi: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Candidates ``lo:hi`` of set ``s``: their rows, their interaction types (reflections) and which are real."""
+    cand, n, _ = sets[s]
+    part = cand[lo:hi]
+    return part, torch.zeros_like(part, dtype=torch.int32), torch.arange(lo, hi, device=part.device) < n
 
 
 def _streamed_forward(
-    scene_tile, tiles, mesh, tx, frequency, eta_r, conductivity, thickness, num_rx, rx_chunk,
+    scene_tile, sets, tiles, mesh, tx, frequency, eta_r, conductivity, thickness, num_rx, rx_chunk,
     megakernel, batch_size, smoothing_factor=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Pass 1: the per-pixel coherent amplitude sum, tile by tile, as (real, imag) ``[num_tx, num_rx]``.
 
-    On a mesh each rank sums its blocks, and one gather gives every rank the whole.
+    Where the tiles take the fused kernels, each set's candidates are laid
+    out once (``coverage._tile_plan``; no receiver enters it, so with or
+    without a mesh). On a mesh each rank sums its blocks, and one gather
+    gives every rank the whole.
     """
     rows: list[torch.Tensor] = []  # one complex sum per RX tile; the tiles come row by row
     with torch.no_grad():
-        for row, rx_tile, cand, itypes, valid in tiles():
-            part = _coverage_tile(
-                scene_tile, tx, rx_tile, cand, itypes, valid, frequency, eta_r, conductivity,
-                thickness, True, megakernel, batch_size, smoothing_factor,
+        plans = [
+            _tile_plan(
+                scene_tile.mesh, cand, torch.zeros_like(cand, dtype=torch.int32), n, frequency,
+                eta_r, conductivity, thickness,
+                megakernel=megakernel,
+                smoothing_factor=smoothing_factor,
+                tx_pattern=None,
+                inputs=(tx, frequency, eta_r, conductivity, thickness, scene_tile.mesh.vertices),
             )
+            for cand, n, _ in sets
+        ]
+        for row, rx_tile, s, lo, hi in tiles():
+            if plans[s] is not None:
+                part = _planned_tile(plans[s], tx, rx_tile, lo, hi, True)
+            else:
+                part = _coverage_tile(
+                    scene_tile, tx, rx_tile, *_chunk(sets, s, lo, hi), frequency, eta_r,
+                    conductivity, thickness, True, megakernel, batch_size, smoothing_factor,
+                )
             if row == len(rows):
                 rows.append(part)
             else:
@@ -594,14 +613,14 @@ def streamed_placement_loss(
     ulps of a mean near 260 dB takes that mean in float64 on the host. With
     a device ``mesh`` every rank returns the whole loss or map.
     """
-    frequency, tx, eta_r, conductivity, thickness, scene_tile, tiles, num_rx, rx_chunk, _ = (
+    frequency, tx, eta_r, conductivity, thickness, scene_tile, sets, tiles, num_rx, rx_chunk, _ = (
         _streamed_setup(
             scene, frequency, mesh, tx, eta_r, conductivity, thickness,
             path_candidates, candidate_chunk, rx_chunk,
         )
     )
     re, im = _streamed_forward(
-        scene_tile, tiles, mesh, tx, frequency, eta_r, conductivity, thickness, num_rx,
+        scene_tile, sets, tiles, mesh, tx, frequency, eta_r, conductivity, thickness, num_rx,
         rx_chunk, megakernel, batch_size, smoothing_factor,
     )
     if return_db_map:
@@ -674,7 +693,7 @@ def streamed_placement_step(
     True
     """
     with annotate("step"):
-        frequency, tx, eta_r, conductivity, thickness, scene_tile, tiles, num_rx, rx_chunk, pad_r = (
+        frequency, tx, eta_r, conductivity, thickness, scene_tile, sets, tiles, num_rx, rx_chunk, pad_r = (
             _streamed_setup(
                 scene, frequency, mesh, tx, eta_r, conductivity, thickness,
                 path_candidates, candidate_chunk, rx_chunk,
@@ -683,7 +702,7 @@ def streamed_placement_step(
         tx, eta_r = tx.detach(), eta_r.detach()
         with annotate("step.pass1"):
             re, im = _streamed_forward(
-                scene_tile, tiles, mesh, tx, frequency, eta_r, conductivity, thickness, num_rx,
+                scene_tile, sets, tiles, mesh, tx, frequency, eta_r, conductivity, thickness, num_rx,
                 rx_chunk, megakernel, batch_size, smoothing_factor,
             )
 
@@ -701,7 +720,8 @@ def streamed_placement_step(
         with annotate("step.pass3"):
             g_tx = torch.zeros_like(tx)
             g_eta = torch.zeros_like(eta_r)
-            for row, rx_tile, cand, itypes, valid in tiles():
+            for row, rx_tile, s, lo, hi in tiles():
+                cand, itypes, valid = _chunk(sets, s, lo, hi)
                 sl = slice(row * rx_chunk, (row + 1) * rx_chunk)
                 cotangents = (g_re[:, sl], g_im[:, sl])
                 if mesh is not None:  # this rank's block; the padded receivers' cotangent is 0

@@ -45,14 +45,15 @@ from ._triangle import F32_EPS, ray_intersect_triangle
 
 
 def candidate_geometry(
-    mesh: Mesh, path_candidates: torch.Tensor
+    mesh: Mesh, path_candidates: torch.Tensor, normals: torch.Tensor | None = None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The mirrors of ``[C, order]`` candidates, as the trace kernel takes them.
 
     Returns the triangle indices ``[C, k * order]`` (each quad expanded to
     its two triangles, ``k = 2``; ``k = 1`` otherwise), their vertices
     ``[C, k * order, 3, 3]``, and each mirror's vertex and unit normal
-    ``[C, order, 3]``, all contiguous.
+    ``[C, order, 3]``, all contiguous. ``normals`` are the mesh's
+    (:attr:`Mesh.normals`), where the caller holds them already.
     """
     num_candidates, order = path_candidates.shape
     k = 2 if mesh.assume_quads else 1
@@ -62,8 +63,19 @@ def candidate_geometry(
     triangles = mesh.triangles[path_candidates].reshape(num_candidates, k * order, 3)
     triangle_vertices = mesh.vertices[triangles].reshape(num_candidates, k * order, 3, 3)
     mirror_vertices = triangle_vertices[..., ::k, 0, :].contiguous()
-    mirror_normals = mesh.normals[path_candidates[..., ::k]].contiguous()
+    mirror_normals = (mesh.normals if normals is None else normals)[path_candidates[..., ::k]].contiguous()
     return path_candidates, triangle_vertices, mirror_vertices, mirror_normals
+
+
+def kernel_tolerances(
+    epsilon: float | None = None, hit_tol: float | None = None, min_len: float | None = None
+) -> tuple[float, float, float]:
+    """The fused trace kernel's ``epsilon``, ``hit_tol`` and ``min_len``, with their defaults."""
+    return (
+        10.0 * F32_EPS if epsilon is None else float(epsilon),
+        100.0 * F32_EPS if hit_tol is None else float(hit_tol),
+        10.0 * F32_EPS if min_len is None else float(min_len),
+    )
 
 
 def trace_path_candidates(
@@ -175,6 +187,7 @@ def trace_geometry(
         # On the card the kernel reads the mesh's cached BVH; on the CPU the
         # plain version reads the triangles.
         on_card = tx_vertices.device.type == "cuda"
+        kernel_epsilon, kernel_hit_tol, kernel_min_len = kernel_tolerances(epsilon, hit_tol, min_len)
         vertices, mask = trace_specular_cuda(
             tx_vertices.contiguous(),
             rx_vertices.contiguous(),
@@ -184,9 +197,9 @@ def trace_geometry(
             None if on_card else mesh.triangle_vertices.contiguous(),
             mesh.mask,
             order=order,
-            epsilon=10.0 * F32_EPS if epsilon is None else float(epsilon),
-            hit_tol=100.0 * F32_EPS if hit_tol is None else float(hit_tol),
-            min_len=float(min_len),
+            epsilon=kernel_epsilon,
+            hit_tol=kernel_hit_tol,
+            min_len=kernel_min_len,
             bvh=mesh.bvh if on_card else None,
         )
         # [tx, cand, rx, ...] -> [tx, rx, cand, ...]

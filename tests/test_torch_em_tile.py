@@ -1,4 +1,4 @@
-"""The EM tile kernel's plain twin against ``complex_amplitudes``, and the coverage tile's routing, on the CPU.
+"""The EM tile kernel's plain twin against ``complex_amplitudes``, and the coverage tile's routing and plan, on the CPU.
 
 ``ops._em.em_tile_sum_reference`` is the contract of ``csrc/em.cu`` (held
 against the twin on the card in ``tests/test_torch_gpu.py``): a traced
@@ -251,3 +251,125 @@ def test_coverage_tile_takes_the_plain_chain_when_a_material_or_the_mesh_needs_a
     with torch.no_grad():  # no gradient can be asked for: the kernel, here its spy's failure
         with pytest.raises(pytest.fail.Exception):
             coverage._coverage_tile(**kw)
+
+
+def _plan_set(case: str) -> tuple[Mesh, torch.Tensor, torch.Tensor, int, int]:
+    """A walled box's candidate set padded as ``power_map_chunked`` pads it: the mesh, the
+    candidates, their types, how many are real, and the chunk."""
+    mesh = Mesh.box(20.0, 10.0, 6.0, with_top=False, device="cpu").set_materials("Concrete")
+    if case == "quads":
+        mesh = mesh.set_assume_quads()
+    if case == "masked":
+        mesh = mesh.set_mask(torch.arange(mesh.num_triangles) % 3 != 0)
+    order = 1 if case == "order_1" else 2
+    cand = generate_path_candidates(mesh.num_primitives, order, device="cpu")
+    if mesh.assume_quads:
+        cand = 2 * cand
+    n = cand.shape[0]  # 10 (order 1), 90 (order 2), 20 (quads, order 2)
+    chunk = {"order_1": 5, "quads": 10, "padded": 32}.get(case, 30)
+    pad = -n % chunk
+    cand = torch.cat((cand, cand[:1].expand(pad, -1)))
+    itypes = torch.zeros_like(cand, dtype=torch.int32)
+    itypes[1::4, -1] = 2  # a bounce the chain passes over: its type must reach the kernel
+    return mesh, cand, itypes, n, chunk
+
+
+def _plan(mesh, cand, itypes, n, **kw):
+    return coverage._tile_plan(
+        mesh, cand, itypes, n, torch.tensor(FREQUENCY), torch.tensor([5.24]), torch.tensor([0.1]), None,
+        **{"megakernel": None, "smoothing_factor": None, "tx_pattern": None, "inputs": (), **kw},
+    )
+
+
+@pytest.mark.parametrize("case", ["order_1", "order_2", "quads", "masked", "padded"])
+def test_tile_plan_slices_are_each_chunks_own_layout(case, monkeypatch) -> None:
+    """The plan's slices equal, bit for bit, what the per-chunk route hands the kernels.
+
+    Per chunk, the route of ``_coverage_tile`` hands the trace kernel the
+    chunk's ``candidate_geometry`` laid out (mirror vertex and normal side by
+    side; each triangle's v0, v1 - v0, v2 - v0), and the EM kernel its
+    ``candidate_rows`` (int64, int32), the mesh's normals and the material
+    table. The planned tile (its kernels' launch halves replaced by spies)
+    hands those slices on; its mask keeps the trace's own where nothing masks
+    a candidate (no ``&``), and drops the padding and the masked triangles.
+    """
+    from differt_tpu_torch.ops import _trace
+    from differt_tpu_torch.rt._solvers import candidate_geometry, candidate_rows, kernel_tolerances
+
+    monkeypatch.setattr(ops, "get_backend", lambda device=None: "cuda")
+    mesh, cand, itypes, n, chunk = _plan_set(case)
+    plan = _plan(mesh, cand, itypes, n)
+    assert plan is not None and plan.num_candidates == n
+
+    launched = {}
+
+    def trace_spy(tx, rx, mirrors, cand_tris, triangle_vertices, active_triangles, **kw):
+        launched["trace"] = (mirrors, cand_tris, triangle_vertices, active_triangles, kw)
+        num_c = mirrors.shape[0]
+        vertices = torch.zeros((tx.shape[0], num_c, rx.shape[0], kw["order"] + 2, 3))
+        mask = torch.ones((tx.shape[0], num_c, rx.shape[0]), dtype=torch.bool)  # every path valid
+        launched["mask"] = mask
+        return vertices, mask
+
+    def em_spy(vertices, mask, *inputs, coherent):
+        launched["em"] = (mask, inputs)
+        return torch.zeros((vertices.shape[0], vertices.shape[1]), dtype=torch.complex64)
+
+    monkeypatch.setattr(_trace, "trace_laid_out", trace_spy)
+    monkeypatch.setattr(_em, "em_laid_out", em_spy)
+    tx, rx = torch.tensor([[-5.0, 0.5, 1.0]]), torch.tensor([[3.0, -2.0, 1.5], [6.0, 1.0, 1.5]])
+    k = 2 if mesh.assume_quads else 1
+    for lo in range(0, cand.shape[0], chunk):
+        hi = lo + chunk
+        pc, tv, mv, mn = candidate_geometry(mesh, cand[lo:hi])
+        v0 = tv[..., 0, :]
+        want_mirrors = torch.cat((mv, mn), dim=-1)
+        want_tris = torch.cat((v0, tv[..., 1, :] - v0, tv[..., 2, :] - v0), dim=-1)
+        rows, types = candidate_rows(pc, itypes[lo:hi], k)
+        coverage._planned_tile(plan, tx, rx, lo, hi, True)
+
+        mirrors, cand_tris, triangle_vertices, active_triangles, kw = launched["trace"]
+        assert torch.equal(mirrors, want_mirrors) and mirrors.is_contiguous()
+        assert torch.equal(cand_tris, want_tris) and cand_tris.is_contiguous()
+        assert triangle_vertices is None and kw["bvh"] is mesh.bvh and kw["order"] == cand.shape[1]
+        assert (kw["epsilon"], kw["hit_tol"], kw["min_len"]) == kernel_tolerances()
+
+        mask, (objects, got_types, normals, face_materials, table, frequency) = launched["em"]
+        assert torch.equal(objects, rows.to(torch.int64)) and objects.dtype == torch.int64
+        assert torch.equal(got_types, types) and got_types.dtype == torch.int32
+        assert objects.is_contiguous() and got_types.is_contiguous()
+        assert torch.equal(normals, mesh.normals) and torch.equal(face_materials, mesh.face_materials)
+        assert torch.equal(table, _em._material_table(torch.tensor(FREQUENCY), torch.tensor([5.24]), torch.tensor([0.1]), None, "cpu"))
+        assert frequency.dtype == torch.float32 and float(frequency) == np.float32(FREQUENCY)
+
+        keep = torch.arange(lo, hi) < n
+        if mesh.mask is not None:
+            keep = keep & mesh.mask[pc].all(dim=-1)
+        assert torch.equal(mask, keep.expand_as(mask))
+        trace_mask = launched["mask"].transpose(1, 2)
+        untouched = mask.data_ptr() == trace_mask.data_ptr() and mask.stride() == trace_mask.stride()
+        assert untouched == (mesh.mask is None and hi <= n), (lo, hi)
+    if case == "padded":
+        assert cand.shape[0] > n and not bool(mask[..., n - lo :].any())
+    if case == "masked":
+        assert not bool(keep.all())
+
+
+@pytest.mark.parametrize("case", ["cpu", "unfused", "smoothed", "pattern", "order_0", "grad", "grad_off"])
+def test_tile_plan_only_where_every_tile_is_fused(case, monkeypatch) -> None:
+    """A plan is made where ``_fused_em`` holds of the call and the trace is fused; else the tiles take the plain route."""
+    mesh, cand, itypes, n, _ = _plan_set("order_1")
+    if case != "cpu":
+        monkeypatch.setattr(ops, "get_backend", lambda device=None: "cuda")
+    kw = {
+        "unfused": {"megakernel": False},
+        "smoothed": {"smoothing_factor": 20.0},
+        "pattern": {"tx_pattern": HWDipolePattern(FREQUENCY, direction=(0.0, 0.0, 1.0), device="cpu")},
+    }.get(case, {})
+    if case == "order_0":
+        cand, itypes = cand[:, :0], itypes[:, :0]
+    if case.startswith("grad"):
+        kw["inputs"] = (torch.zeros(1, 3, requires_grad=True),)
+    with torch.set_grad_enabled(case != "grad_off"):
+        plan = _plan(mesh, cand, itypes, n, **kw)
+    assert (plan is not None) == (case == "grad_off")

@@ -999,3 +999,95 @@ def test_streamed_step_pass1_fused_against_plain(monkeypatch) -> None:
         norm = float(torch.linalg.vector_norm(change_plain.double()))
         assert norm > 0.0, name
         assert float(torch.linalg.vector_norm((change - change_plain).double())) <= 3e-3 * norm, name
+
+
+def _count_plans(monkeypatch, module) -> list:
+    """Spy on ``module._tile_plan``: the plans it made (None where the tiles took the plain route)."""
+    plans, real = [], module._tile_plan
+
+    def spy(*args, **kwargs):
+        plans.append(real(*args, **kwargs))
+        return plans[-1]
+
+    monkeypatch.setattr(module, "_tile_plan", spy)
+    return plans
+
+
+def _unplanned(monkeypatch) -> None:
+    """The route without plans: each fused tile lays out its own inputs (``coverage._coverage_tile``)."""
+    from differt_tpu_torch import coverage
+    from differt_tpu_torch.parallel import _sharding
+
+    for module in (coverage, _sharding):
+        monkeypatch.setattr(module, "_tile_plan", lambda *args, **kwargs: None)
+
+
+@pytest.mark.parametrize(
+    ("order", "chunk", "masked"),
+    [(1, 512, False), (2, 520, False), (2, 512, False), (2, 520, True)],
+    ids=["order_1", "order_2", "order_2_padded", "order_2_masked"],
+)
+def test_power_map_chunked_plan_is_bit_equal_to_each_tile_laying_out_its_own(order, chunk, masked, monkeypatch) -> None:
+    """The map through one plan of the candidate set against the tile-by-tile route
+    (``trace_geometry`` and ``em_tile_sum`` on each chunk): the kernels read the same
+    bytes, so the maps are equal bit for bit; one trace and one EM call a tile either way."""
+    from differt_tpu_torch import coverage
+    from differt_tpu_torch.ops import _em
+
+    device = cuda_or_skip()
+    scene, pairs = _near_city(device, 64)  # 4,096 receivers: 4 tiles of 1,024
+    if masked:
+        mask = torch.ones(scene.mesh.num_triangles, dtype=torch.bool, device=device)
+        mask[pairs[7, 1]] = False  # the 78 pairs that meet one of the 40 triangles
+        scene = dataclasses.replace(scene, mesh=scene.mesh.set_mask(mask))
+    cands = generate_path_candidates(scene.mesh.num_primitives, 1, device=device) if order == 1 else pairs
+    kw = {"order": order, "path_candidates": cands, "candidate_chunk": chunk, "rx_chunk": 1_024}
+    tiles = -(-cands.shape[0] // chunk) * 4
+    assert (cands.shape[0] % chunk != 0) == (order == 1 or chunk == 512)
+    plans = _count_plans(monkeypatch, coverage)
+    counts = (_trace.LAUNCHES, _em.LAUNCHES)
+    got = coverage.power_map_chunked(scene, 2.4e9, **kw)
+    torch.cuda.synchronize()
+    assert len(plans) == 1 and plans[0] is not None
+    assert (plans[0].active_rays is not None) == masked
+    if masked:
+        assert int((~plans[0].active_rays).sum()) == 78
+    assert (_trace.LAUNCHES - counts[0], _em.LAUNCHES - counts[1]) == (tiles, tiles)
+    _unplanned(monkeypatch)
+    counts = (_trace.LAUNCHES, _em.LAUNCHES)
+    want = coverage.power_map_chunked(scene, 2.4e9, **kw)
+    assert (_trace.LAUNCHES - counts[0], _em.LAUNCHES - counts[1]) == (tiles, tiles)
+    assert float(want.max()) > 0.0
+    assert torch.equal(got, want)
+
+
+def test_streamed_placement_loss_plan_is_bit_equal_to_each_tile_laying_out_its_own(monkeypatch) -> None:
+    """Pass 1 through a plan per order's candidate set (the order-1 set padded) against the
+    tile-by-tile route: the same dB map and loss, bit for bit; one trace and one EM call a tile."""
+    from differt_tpu_torch.ops import _em
+    from differt_tpu_torch.parallel import _sharding, streamed_placement_loss
+
+    device = cuda_or_skip()
+    scene, pairs = _near_city(device, 32)
+    cands = [generate_path_candidates(scene.mesh.num_primitives, 1, device=device), pairs]
+    kw = {
+        "tx": scene.transmitters,
+        "eta_r": torch.tensor([5.24], device=device),
+        "conductivity": torch.tensor([0.12], device=device),
+        "path_candidates": cands,
+        "candidate_chunk": 512,
+        "rx_chunk": 512,
+    }
+    tiles = sum(-(-c.shape[0] // 512) for c in cands) * 2  # 1,024 receivers: 2 tiles
+    assert cands[0].shape[0] % 512 != 0
+    plans = _count_plans(monkeypatch, _sharding)
+    counts = (_trace.LAUNCHES, _em.LAUNCHES)
+    got = [streamed_placement_loss(scene, 2.4e9, **kw, return_db_map=db) for db in (True, False)]
+    torch.cuda.synchronize()
+    assert len(plans) == 4 and all(p is not None for p in plans)  # two sets a call
+    assert (_trace.LAUNCHES - counts[0], _em.LAUNCHES - counts[1]) == (2 * tiles, 2 * tiles)
+    _unplanned(monkeypatch)
+    want = [streamed_placement_loss(scene, 2.4e9, **kw, return_db_map=db) for db in (True, False)]
+    assert bool((want[0] > -300.0).any())
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
