@@ -1097,7 +1097,7 @@ def anchor_streamed_step(label: str, scene_direct, scene_sub, kwargs: dict) -> s
     the TX moves (not gated). ``kwargs`` are ``streamed_placement_step``'s
     arguments other than the scene, the frequency and the rates.
     """
-    from differt_tpu_torch.coverage import _coverage_tile
+    from differt_tpu_torch.coverage import _CandidateSet, _coverage_tile
     from differt_tpu_torch.parallel import streamed_placement_loss, streamed_placement_step
     from differt_tpu_torch.parallel._sharding import _placement_loss
 
@@ -1124,9 +1124,8 @@ def anchor_streamed_step(label: str, scene_direct, scene_sub, kwargs: dict) -> s
     total = None
     for cand in kwargs["path_candidates"]:
         part = _coverage_tile(
-            scene_direct, tx_leaf, rx_direct, cand, torch.zeros_like(cand, dtype=torch.int32),
-            torch.ones(cand.shape[0], dtype=torch.bool, device=device),
-            torch.tensor(FREQUENCY, device=device), eta0, sigma, None, True, None,
+            scene_direct, tx_leaf, rx_direct, _CandidateSet(cand, None, len(cand), len(cand)), 0, len(cand),
+            None, torch.tensor(FREQUENCY, device=device), eta0, sigma, None, True, None,
         )
         total = part if total is None else total + part
     (g_direct,) = torch.autograd.grad(_placement_loss(total.real, total.imag, None), tx_leaf)
@@ -1169,7 +1168,7 @@ def run_placement(device, kernels: dict) -> None:
     """Phases 10-12: the gradient step at full width, counted; its anchors on
     a strided subsample of the same grid; a profile and a tile's breakdown."""
     from differt_tpu_torch import ops
-    from differt_tpu_torch.coverage import _coverage_tile, complex_amplitudes, z_0
+    from differt_tpu_torch.coverage import _CandidateSet, _coverage_tile, complex_amplitudes, z_0
     from differt_tpu_torch.ops import _bvh, _em, _rt, _trace
     from differt_tpu_torch.parallel import streamed_placement_loss, streamed_placement_step
     from differt_tpu_torch.parallel._sharding import _placement_loss
@@ -1308,14 +1307,13 @@ def run_placement(device, kernels: dict) -> None:
     # of a step of 16 tiles (a 128 x 128 grid).
     cand = candidates[1]
     rx_tile = tile_near_tx(scene)
-    itypes = torch.zeros_like(cand, dtype=torch.int32)
-    valid = torch.ones(cand.shape[0], dtype=torch.bool, device=device)
+    cand_set = _CandidateSet(cand, None, len(cand), len(cand))
     freq = torch.tensor(FREQUENCY, device=device)
     scene_tile = dataclasses.replace(scene, receivers=rx_flat[:0])
 
     def tile_forward(tx, eta):
         a = _coverage_tile(
-            scene_tile, tx, rx_tile, cand, itypes, valid, freq, eta, sigma, None, True, None
+            scene_tile, tx, rx_tile, cand_set, 0, len(cand), None, freq, eta, sigma, None, True, None
         )
         return a.real, a.imag
 
@@ -1936,7 +1934,7 @@ def run_diffraction(city, kernels: dict, materials: dict) -> None:
     # The same map in its parts, timed apart (CUDA events), and recomposed.
     scene = fresh(city)
     frequency = torch.tensor(FREQUENCY, device=device)
-    eta_r, conductivity, thickness = coverage._resolve_materials(
+    eta_r, conductivity, thickness = coverage.resolve_materials(
         scene, frequency, materials["eta_r"], materials["conductivity"], None
     )
     events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
@@ -2277,7 +2275,7 @@ def run_mixed(device, kernels: dict, materials: dict) -> None:
     # The same map in its parts, timed apart (CUDA events), and recomposed.
     scene = fresh(city)
     frequency = torch.tensor(FREQUENCY, device=device)
-    eta_r, conductivity, thickness = coverage._resolve_materials(
+    eta_r, conductivity, thickness = coverage.resolve_materials(
         scene, frequency, materials["eta_r"], materials["conductivity"], None
     )
     marks = []
@@ -2479,7 +2477,7 @@ def run_scattering(city, kernels: dict, materials: dict) -> None:
 
     scene = fresh(city)
     frequency = torch.tensor(FREQUENCY, device=device)
-    eta_r, conductivity, thickness = coverage._resolve_materials(
+    eta_r, conductivity, thickness = coverage.resolve_materials(
         scene, frequency, materials["eta_r"], materials["conductivity"], None
     )
     events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
@@ -2726,7 +2724,7 @@ def run_ingest(city, kernels: dict, order2_candidates: torch.Tensor) -> tuple:
 
     # Order 1 against the coverage chain's |a|^2 / z_0 (tests/test_coverage.py's consistency check).
     frequency = torch.tensor(FREQUENCY, device=device)
-    eta_r, conductivity, thickness = coverage._resolve_materials(scene, frequency, None, None, None)
+    eta_r, conductivity, thickness = coverage.resolve_materials(scene, frequency, None, None, None)
     a = coverage.complex_amplitudes(
         paths[1], scene, frequency, eta_r=eta_r, conductivity=conductivity, thickness=thickness
     ).reshape(1, num_rx, -1)

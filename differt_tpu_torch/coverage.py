@@ -9,8 +9,10 @@ to the transmitters, the materials and the mesh's vertices; with a
 they flow through path validity too.
 """
 
+import copy
 import dataclasses
 import math
+from collections.abc import Iterator
 from typing import Any
 
 import torch
@@ -192,8 +194,8 @@ def received_power(
     return (torch.abs(a) ** 2).sum(dim=-1) / z_0
 
 
-def _resolve_materials(scene: Scene, frequency: torch.Tensor, eta_r, conductivity, thickness):
-    """Default material arrays from the ITU table at ``frequency``."""
+def resolve_materials(scene: Scene, frequency: torch.Tensor, eta_r, conductivity, thickness):
+    """A call's materials, float32 on the mesh's device; the ITU table's at ``frequency`` where ``eta_r`` or ``conductivity`` is None."""
     device = scene.mesh.device
     if eta_r is None or conductivity is None:
         names = scene.mesh.material_names or ("Vacuum",)
@@ -262,7 +264,7 @@ def power_map(
     ((1, 2, 4), True)
     """
     frequency = torch.as_tensor(frequency, dtype=torch.float32, device=scene.mesh.device)
-    eta_r, conductivity, thickness = _resolve_materials(
+    eta_r, conductivity, thickness = resolve_materials(
         scene, frequency, eta_r, conductivity, thickness
     )
     paths = scene.trace_paths(order=order, solver=solver, **solver_kwargs)
@@ -400,29 +402,40 @@ def _fused_em(device: torch.device, order: int, hard: bool, tx_pattern, inputs) 
 
 @dataclasses.dataclass(frozen=True)
 class _TilePlan:
-    """What the kernels of a fused tile read of one candidate set and call, laid out once (:func:`_tile_plan`).
+    """What the kernels of a set's tiles read of one candidate set and call, laid out once (:func:`_tile_plan`).
 
     Each per-candidate tensor spans the whole padded set, so that chunk
     ``lo:hi`` is a contiguous slice of it, equal bit for bit to the chunk's
-    own layout.
+    own layout. The EM half is always there; the trace half (``mirrors``
+    to ``bvh``) only where the trace is fused, else None.
     """
 
-    num_candidates: int  # before padding: candidates from here on are masked out
-    mirrors: torch.Tensor  # [C, order, 6], ops._trace.trace_layout
-    cand_tris: torch.Tensor  # [C, tpm * order, 9]
     objects: torch.Tensor  # [C, order] int64, ops._em.em_rows
     types: torch.Tensor  # [C, order] int32
     valid: torch.Tensor  # [C]: not padding
+    em_inputs: tuple  # normals, face materials, material table, frequency: ops._em.em_mesh_inputs
+    mirrors: torch.Tensor | None  # [C, order, 6], ops._trace.trace_layout
+    cand_tris: torch.Tensor | None  # [C, tpm * order, 9]
     active_rays: torch.Tensor | None  # [C]: every triangle active (None: the mesh has no mask)
     bvh: Any
-    em_inputs: tuple  # normals, face materials, material table, frequency: ops._em.em_mesh_inputs
+
+
+@dataclasses.dataclass(frozen=True)
+class _CandidateSet:
+    """A candidate set padded to whole chunks with copies of its first candidate (:class:`_TileWalk`)."""
+
+    candidates: torch.Tensor  # [C, order], C a whole number of chunks
+    interaction_types: torch.Tensor | None  # [C, order]; None: reflections
+    num_candidates: int  # before padding: candidates from here on are masked out
+    chunk: int
+    plan: _TilePlan | None = None
 
 
 def _tile_plan(
     mesh,
-    candidates: torch.Tensor,
-    interaction_types: torch.Tensor,
-    num_candidates: int,
+    tx: torch.Tensor,
+    rx: torch.Tensor,
+    candidate_set: _CandidateSet,
     frequency: torch.Tensor,
     eta_r: torch.Tensor,
     conductivity: torch.Tensor,
@@ -431,98 +444,88 @@ def _tile_plan(
     megakernel: bool | None,
     smoothing_factor,
     tx_pattern,
-    inputs,
 ) -> _TilePlan | None:
-    """A plan for the tiles of a padded candidate set in one call, or None where they take the plain route.
+    """A plan for the tiles of a padded candidate set in one call, or None where they take the plain chain.
 
-    Every tile of the set takes the fused trace and the EM kernel where
-    :func:`_fused_em` holds of the call's ``inputs`` (those a tile's trace
-    and chain read), the masks are hard and the trace is not forced
-    unfused; then each tile makes only the launches that depend on its
-    receivers (:func:`_planned_tile`). The layout runs in the span
-    ``tile.prep``, once per set and call.
+    Where :func:`_fused_em` holds of the call (of all a tile reads), the EM
+    kernel's rows and mesh inputs are laid out here, and where the trace is
+    fused (``rt._solvers.fused_trace``) the trace kernel's inputs too; each
+    tile then makes only the launches that depend on its receivers
+    (:func:`_coverage_tile`). In the span ``tile.prep``, once per set and call.
     """
-    order = candidates.shape[1]
+    candidates = candidate_set.candidates
+    num_cand, order = candidates.shape
     device = mesh.device
-    if not (
-        megakernel is not False
-        and smoothing_factor is None
-        and order >= 1
-        and _fused_em(device, order, True, tx_pattern, inputs)
-    ):
+    inputs = (tx, rx, frequency, eta_r, conductivity, thickness, mesh.vertices)
+    if not _fused_em(device, order, smoothing_factor is None, tx_pattern, inputs):
         return None
     from .ops._em import em_mesh_inputs, em_rows
     from .ops._trace import trace_layout
-    from .rt._solvers import candidate_geometry, candidate_rows
+    from .rt._solvers import candidate_geometry, candidate_rows, fused_trace
 
     with annotate("tile.prep"):
         em_inputs = em_mesh_inputs(mesh, frequency, eta_r, conductivity, thickness, device)
-        path_candidates, triangle_vertices, mirror_vertices, mirror_normals = candidate_geometry(
-            mesh, candidates, normals=em_inputs[0]
-        )
-        k = 2 if mesh.assume_quads else 1
-        mirrors, cand_tris = trace_layout(mirror_vertices, mirror_normals, triangle_vertices)
-        objects, types = em_rows(*candidate_rows(path_candidates, interaction_types, k), device)
-        return _TilePlan(
-            num_candidates=num_candidates,
-            mirrors=mirrors,
-            cand_tris=cand_tris,
-            objects=objects,
-            types=types,
-            valid=torch.arange(candidates.shape[0], device=device) < num_candidates,
-            active_rays=None if mesh.mask is None else mesh.mask[path_candidates].all(dim=-1),
-            bvh=mesh.bvh,
-            em_inputs=em_inputs,
-        )
-
-
-def _planned_tile(
-    plan: _TilePlan, tx: torch.Tensor, rx_tile: torch.Tensor, lo: int, hi: int, coherent: bool
-) -> torch.Tensor:
-    """:func:`_coverage_tile`'s fused branch on candidates ``lo:hi`` of a plan, with the same bits.
-
-    The trace and the EM kernel read the plan's slices; the candidates'
-    masks are applied only where they mask something: the mesh's where it
-    has one, the padding's on the chunk that holds some.
-    """
-    from .ops._em import em_laid_out
-    from .ops._trace import trace_laid_out
-    from .rt._solvers import kernel_tolerances
-
-    with annotate("tile"):
-        epsilon, hit_tol, min_len = kernel_tolerances()
-        vertices, mask = trace_laid_out(
-            tx.contiguous(),
-            rx_tile.contiguous(),
-            plan.mirrors[lo:hi],
-            plan.cand_tris[lo:hi],
-            None,
-            None,
-            order=plan.mirrors.shape[1],
-            epsilon=epsilon,
-            hit_tol=hit_tol,
-            min_len=min_len,
-            bvh=plan.bvh,
-        )
-        # [tx, cand, rx] -> [tx, rx, cand]
-        vertices, mask = vertices.transpose(1, 2), mask.transpose(1, 2)
-        if plan.active_rays is not None:
-            mask = mask & plan.active_rays[lo:hi]
-        if hi > plan.num_candidates:
-            mask = mask & plan.valid[lo:hi]
-        with annotate("em"):
-            return em_laid_out(
-                vertices, mask, plan.objects[lo:hi], plan.types[lo:hi], *plan.em_inputs, coherent=coherent
+        # A bounce's object is its candidate's primitive (a quad's first triangle), as the trace expands it.
+        objects, types = em_rows(*candidate_rows(candidates, candidate_set.interaction_types), device)
+        mirrors = cand_tris = active_rays = bvh = None
+        if order >= 1 and fused_trace(megakernel, device, order, num_cand, smoothing_factor):
+            path_candidates, triangle_vertices, mirror_vertices, mirror_normals = candidate_geometry(
+                mesh, candidates, normals=em_inputs[0]
             )
+            mirrors, cand_tris = trace_layout(mirror_vertices, mirror_normals, triangle_vertices)
+            active_rays = None if mesh.mask is None else mesh.mask[path_candidates].all(dim=-1)
+            bvh = mesh.bvh
+        valid = torch.arange(num_cand, device=device) < candidate_set.num_candidates
+        return _TilePlan(objects, types, valid, em_inputs, mirrors, cand_tris, active_rays, bvh)
+
+
+class _TileWalk:
+    """The (RX tile, candidate chunk) pairs of a map or a streamed step: RX tiles, then sets, then chunks.
+
+    Pads the receivers to whole tiles of ``rx_chunk`` and each candidate set
+    (``(candidates, interaction_types)``, None: reflections) to whole chunks
+    of ``candidate_chunk``, each with copies of its first row. Yields each
+    tile's RX row and tile, its set and its candidates ``lo:hi``; a row
+    sums over every set's chunks, so over the orders.
+    """
+
+    def __init__(self, rx: torch.Tensor, rx_chunk: int, candidate_sets, candidate_chunk: int) -> None:
+        self.num_rx = rx.shape[0]
+        self.rx_chunk = min(rx_chunk, max(self.num_rx, 1))
+        self.pad_r = -self.num_rx % self.rx_chunk
+        self.rx = torch.cat((rx, rx[:1].expand(self.pad_r, 3))) if self.pad_r else rx
+        self.sets = []
+        for candidates, types in candidate_sets:
+            n = candidates.shape[0]
+            chunk = min(candidate_chunk, max(n, 1))
+            pad = -n % chunk
+            if pad:
+                candidates = torch.cat((candidates, candidates[:1].expand(pad, -1)))
+                types = None if types is None else torch.cat((types, types[:1].expand(pad, -1)))
+            self.sets.append(_CandidateSet(candidates, types, n, chunk))
+
+    def planned(self, mesh, tx, *call, **options) -> "_TileWalk":
+        """This walk with each set's plan for one call (``call`` and ``options``: :func:`_tile_plan`'s, after the set)."""
+        walk = copy.copy(self)
+        walk.sets = [dataclasses.replace(s, plan=_tile_plan(mesh, tx, self.rx, s, *call, **options)) for s in self.sets]
+        return walk
+
+    def __iter__(self) -> Iterator[tuple[int, torch.Tensor, _CandidateSet, int, int]]:
+        for row, r0 in enumerate(range(0, self.rx.shape[0], self.rx_chunk)):
+            rx_tile = self.rx[r0 : r0 + self.rx_chunk]
+            for s in self.sets:
+                for lo in range(0, s.candidates.shape[0], s.chunk):
+                    yield row, rx_tile, s, lo, lo + s.chunk
 
 
 def _coverage_tile(
     scene: Scene,
     tx: torch.Tensor,
     rx_tile: torch.Tensor,
-    cand_chunk: torch.Tensor,
-    itype_chunk: torch.Tensor,
-    chunk_valid: torch.Tensor,
+    candidate_set: _CandidateSet,
+    lo: int,
+    hi: int,
+    plan: _TilePlan | None,
     frequency: torch.Tensor,
     eta_r: torch.Tensor,
     conductivity: torch.Tensor,
@@ -533,53 +536,74 @@ def _coverage_tile(
     smoothing_factor: float | torch.Tensor | None = None,
     tx_pattern=None,
 ) -> torch.Tensor:
-    """One (RX tile, candidate chunk) step of :func:`power_map_chunked`.
+    """One (RX tile, candidate chunk) step of a map or a streamed step: candidates ``lo:hi`` of a padded set.
 
     Returns the complex path sum (``coherent``) or the power sum per
     ``[num_tx, rx_chunk]`` pixel; padded candidates are masked out. With a
     ``smoothing_factor`` the checks are sigmoids and each path's amplitude
     is weighted by its confidence.
 
-    Where no gradient can be asked for (:func:`_fused_em`), the chain and
-    the sum run as one kernel (``ops._em.em_tile_sum``, ``csrc/em.cu``);
-    otherwise :func:`complex_amplitudes` computes each path's amplitude.
+    Two halves, each on the set's ``plan`` (:func:`_tile_plan`) where it
+    has one. The trace: the fused kernel on the plan's slices where the plan
+    holds the trace half, else ``rt._solvers.trace_geometry``. The EM chain
+    and the sum: one kernel (``csrc/em.cu``) on the plan's rows where there
+    is a plan, else :func:`complex_amplitudes` per path.
     """
+    from .ops._em import em_laid_out
+    from .ops._trace import trace_laid_out
+    from .rt._solvers import _assemble_traced_paths, kernel_tolerances, trace_geometry
+
+    num_candidates = candidate_set.num_candidates
     with annotate("tile"):
-        from .rt._solvers import _assemble_traced_paths, candidate_rows, trace_geometry
-
-        vertices, mask, triangles, k = trace_geometry(
-            scene.mesh,
-            tx,
-            rx_tile,
-            cand_chunk,
-            megakernel=megakernel,
-            batch_size=batch_size,
-            smoothing_factor=smoothing_factor,
-        )
-        if mask.dtype == torch.bool:
-            mask = mask & chunk_valid
-        else:  # a confidence is weighted, not AND-ed
-            mask = mask * chunk_valid.to(mask.dtype)
-        inputs = (vertices, frequency, eta_r, conductivity, thickness, scene.mesh.vertices)
-        if _fused_em(vertices.device, vertices.shape[-2] - 2, mask.dtype == torch.bool, tx_pattern, inputs):
-            from .ops._em import em_tile_sum
-
-            objects, types = candidate_rows(triangles, itype_chunk, k)
+        if plan is not None and plan.mirrors is not None:
+            epsilon, hit_tol, min_len = kernel_tolerances()
+            vertices, mask = trace_laid_out(
+                tx.contiguous(),
+                rx_tile.contiguous(),
+                plan.mirrors[lo:hi],
+                plan.cand_tris[lo:hi],
+                None,
+                None,
+                order=plan.mirrors.shape[1],
+                epsilon=epsilon,
+                hit_tol=hit_tol,
+                min_len=min_len,
+                bvh=plan.bvh,
+            )
+            # [tx, cand, rx] -> [tx, rx, cand]
+            vertices, mask = vertices.transpose(1, 2), mask.transpose(1, 2)
+            if plan.active_rays is not None:
+                mask = mask & plan.active_rays[lo:hi]
+        else:
+            cand_chunk = candidate_set.candidates[lo:hi]
+            vertices, mask, triangles, k = trace_geometry(
+                scene.mesh,
+                tx,
+                rx_tile,
+                cand_chunk,
+                megakernel=megakernel,
+                batch_size=batch_size,
+                smoothing_factor=smoothing_factor,
+            )
+        # The padding's mask: a planned tile slices its plan's, on the chunk that holds padding only.
+        if plan is None:
+            valid = torch.arange(lo, hi, device=candidate_set.candidates.device) < num_candidates
+        else:
+            valid = plan.valid[lo:hi] if hi > num_candidates else None
+        if valid is not None:
+            if mask.dtype == torch.bool:
+                mask = mask & valid
+            else:  # a confidence is weighted, not AND-ed
+                mask = mask * valid.to(mask.dtype)
+        if plan is not None:
             with annotate("em"):
-                return em_tile_sum(
-                    vertices,
-                    mask,
-                    objects,
-                    types,
-                    scene.mesh,
-                    frequency,
-                    eta_r=eta_r,
-                    conductivity=conductivity,
-                    thickness=thickness,
-                    coherent=coherent,
+                return em_laid_out(
+                    vertices, mask, plan.objects[lo:hi], plan.types[lo:hi], *plan.em_inputs, coherent=coherent
                 )
+        types = candidate_set.interaction_types
         paths = _assemble_traced_paths(
-            vertices, mask, triangles, itype_chunk, k, tx.shape[0], rx_tile.shape[0], *cand_chunk.shape
+            vertices, mask, triangles, None if types is None else types[lo:hi], k,
+            tx.shape[0], rx_tile.shape[0], *cand_chunk.shape,
         )
         a = complex_amplitudes(
             paths,
@@ -632,7 +656,7 @@ def power_map_chunked(
 
         device = scene.mesh.device
         frequency = torch.as_tensor(frequency, dtype=torch.float32, device=device)
-        eta_r, conductivity, thickness = _resolve_materials(
+        eta_r, conductivity, thickness = resolve_materials(
             scene, frequency, eta_r, conductivity, thickness
         )
         tx = scene.transmitters.reshape(-1, 3)
@@ -642,61 +666,29 @@ def power_map_chunked(
             tracer = _SOLVER_REGISTRY[solver]() if isinstance(solver, str) else solver
             candidates, itypes = tracer.generate_path_candidates(scene, order)
         else:
-            candidates = torch.as_tensor(path_candidates, device=device)
-            itypes = torch.zeros_like(candidates, dtype=torch.int32)
-
-        num_candidates = candidates.shape[0]
-        candidate_chunk = min(candidate_chunk, max(num_candidates, 1))
-        pad_c = -num_candidates % candidate_chunk
-        if pad_c:
-            candidates = torch.cat((candidates, candidates[:1].expand(pad_c, -1)))
-            itypes = torch.cat((itypes, itypes[:1].expand(pad_c, -1)))
+            candidates, itypes = torch.as_tensor(path_candidates, device=device), None
 
         num_rx = rx_all.shape[0]
-        rx_chunk = min(rx_chunk, max(num_rx, 1))
         rx_perm = None
         if num_rx > rx_chunk:
             rx_perm = morton_perm_points(rx_all)
             rx_all = rx_all[rx_perm]
-        pad_r = -num_rx % rx_chunk
-        if pad_r:
-            rx_all = torch.cat((rx_all, rx_all[:1].expand(pad_r, 3)))
-
-        plan = _tile_plan(
-            scene.mesh, candidates, itypes, num_candidates, frequency, eta_r, conductivity, thickness,
+        walk = _TileWalk(rx_all, rx_chunk, [(candidates, itypes)], candidate_chunk).planned(
+            scene.mesh, tx, frequency, eta_r, conductivity, thickness,
             megakernel=megakernel,
             smoothing_factor=smoothing_factor,
             tx_pattern=tx_pattern,
-            inputs=(tx, rx_all, frequency, eta_r, conductivity, thickness, scene.mesh.vertices),
         )
-        out_tiles = []
-        for r0 in range(0, rx_all.shape[0], rx_chunk):
-            rx_tile = rx_all[r0 : r0 + rx_chunk]
-            acc = None
-            for lo in range(0, candidates.shape[0], candidate_chunk):
-                hi = lo + candidate_chunk
-                if plan is not None:
-                    part = _planned_tile(plan, tx, rx_tile, lo, hi, coherent)
-                else:
-                    part = _coverage_tile(
-                        scene,
-                        tx,
-                        rx_tile,
-                        candidates[lo:hi],
-                        itypes[lo:hi],
-                        torch.arange(lo, hi, device=device) < num_candidates,
-                        frequency,
-                        eta_r,
-                        conductivity,
-                        thickness,
-                        coherent,
-                        megakernel,
-                        batch_size,
-                        smoothing_factor,
-                        tx_pattern,
-                    )
-                acc = part if acc is None else acc + part
-            out_tiles.append(acc)
+        out_tiles = []  # one sum per RX tile; the tiles come row by row
+        for row, rx_tile, s, lo, hi in walk:
+            part = _coverage_tile(
+                scene, tx, rx_tile, s, lo, hi, s.plan, frequency, eta_r, conductivity, thickness,
+                coherent, megakernel, batch_size, smoothing_factor, tx_pattern,
+            )
+            if row == len(out_tiles):
+                out_tiles.append(part)
+            else:
+                out_tiles[row] = out_tiles[row] + part
 
         total = torch.cat(out_tiles, dim=-1)[..., :num_rx]
         if rx_perm is not None:

@@ -9,10 +9,10 @@ once, and writes one sum per pixel (see the kernel's header note).
 
 :func:`em_tile_sum` computes what ``complex_amplitudes(...).sum(-1)``
 computes on a traced tile (or, for an incoherent map, the sum of
-``|a|^2``), with no gradient and no antenna pattern: the coverage tile
-takes it where no gradient can be asked for (``coverage._coverage_tile``).
-:func:`em_tile_sum_reference` is its contract in plain PyTorch, written
-on ``complex_amplitudes``.
+``|a|^2``), with no gradient and no antenna pattern; the coverage tile
+launches the kernel (:func:`em_laid_out`) on a candidate set's plan
+(``coverage._tile_plan``). :func:`em_tile_sum_reference` is its contract
+in plain PyTorch, written on ``complex_amplitudes``.
 """
 
 import math
@@ -167,8 +167,8 @@ def em_laid_out(
 
     The launch half of every call of the kernel: :func:`em_tile_sum`, and a
     coverage tile whose rows and mesh inputs were laid out once for the
-    whole candidate set (``coverage._planned_tile``). Counted in
-    :data:`LAUNCHES`.
+    whole candidate set (``coverage._coverage_tile`` on its set's plan).
+    Counted in :data:`LAUNCHES`.
     """
     from ._rt import _check
     from ._trace import MAX_ORDER

@@ -329,7 +329,7 @@ def trace_laid_out(
     as :func:`trace_specular_reference`; no gradient. The launch half of
     every call of the kernel: :func:`trace_specular_cuda`'s forward, and a
     coverage tile whose candidates were laid out once for the whole set
-    (``coverage._planned_tile``).
+    (``coverage._coverage_tile`` on its set's plan).
     """
     device = tx_vertices.device
     if device.type != "cuda":

@@ -19,12 +19,12 @@ runs on one device with no collective.
 
 import dataclasses
 import socket
-from collections.abc import Iterator, Sequence
+from collections.abc import Sequence
 
 import torch
 import torch.distributed as dist
 
-from ..coverage import _coverage_tile, _planned_tile, _resolve_materials, _tile_plan, received_power
+from ..coverage import _coverage_tile, _TileWalk, received_power, resolve_materials
 from ..em import z_0
 from ..geometry import Scene, TracedPaths, generate_path_candidates
 from ..profiling import annotate
@@ -328,7 +328,7 @@ def sharded_power_map(
     _member(mesh)
     frequency = torch.as_tensor(frequency, dtype=torch.float32, device=mesh.device)
     if eta_r is None or conductivity is None:
-        eta_r, conductivity, thickness = _resolve_materials(
+        eta_r, conductivity, thickness = resolve_materials(
             scene, frequency, eta_r, conductivity, thickness
         )
     rx_batch = scene.receivers.shape[:-1]
@@ -450,135 +450,70 @@ def placement_training_step(
     )
 
 
-def _tile_amplitude_parts(
-    scene_tile, tx, eta_r, rx_tile, cand, itypes, valid,
-    frequency, conductivity, thickness, megakernel, batch_size, smoothing_factor=None,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """(real, imag) of one (RX tile, candidate chunk) amplitude sum.
-
-    A pair of real tensors, so that the streamed backward composes with the
-    loss's gradient with no convention for complex cotangents in between.
-    """
-    a = _coverage_tile(
-        scene_tile, tx, rx_tile, cand, itypes, valid, frequency, eta_r, conductivity,
-        thickness, True, megakernel, batch_size, smoothing_factor,
-    )
-    return a.real, a.imag
-
-
 def _streamed_setup(
     scene: Scene, frequency, mesh, tx, eta_r, conductivity, thickness,
     path_candidates, candidate_chunk: int, rx_chunk: int,
 ):
-    """Padding and tiling shared by the streamed loss and step.
+    """The tile walk (``coverage._TileWalk``), the scene without its receivers, the TX, the frequency and
+    the materials of the streamed loss and step.
 
-    Receivers are padded to whole tiles of ``rx_chunk`` with copies of the
-    first, each order's candidates to whole chunks with copies of its
-    first (masked out by the tile's ``valid``: :func:`_chunk`).
     ``path_candidates`` is one ``[C, order]`` tensor or a sequence of them,
-    one per order, each a set of ``sets``: every order's chunks go through
-    the same tile step, so the accumulated amplitude is the coherent sum
-    over the orders. ``tiles()`` yields each tile's RX row and tile, and
-    its set and candidate range.
-
-    With a ``mesh`` the scene, TX and materials are replicated (detached:
-    the step sums the ranks' gradients itself) and each RX tile is padded to
-    a multiple of the mesh size with copies of its first receiver, this
-    rank taking its block.
+    one per order, each a set of the walk. With a ``mesh`` the scene, TX and
+    materials are replicated (detached: the step sums the ranks' gradients
+    itself), and the passes pad each RX tile to a multiple of the mesh size
+    with copies of its first receiver, this rank taking its block.
     """
     device = scene.mesh.device if mesh is None else mesh.device
     frequency = torch.as_tensor(frequency, dtype=torch.float32, device=scene.mesh.device)
-    eta_r, conductivity, thickness = _resolve_materials(
+    eta_r, conductivity, thickness = resolve_materials(
         scene, frequency, eta_r, conductivity, thickness
     )
     tx = torch.as_tensor(tx, dtype=torch.float32).to(device)
-
-    rx_all = scene.receivers.reshape(-1, 3)
-    num_rx = rx_all.shape[0]
-    rx_chunk = min(rx_chunk, max(num_rx, 1))
-    pad_r = -num_rx % rx_chunk
-    if pad_r:
-        rx_all = torch.cat((rx_all, rx_all[:1].expand(pad_r, 3)))
-
-    cand_list = (
-        list(path_candidates) if isinstance(path_candidates, (list, tuple)) else [path_candidates]
-    )
-    sets = []  # (padded candidates, how many are real, chunk)
-    for cand in cand_list:
-        cand = torch.as_tensor(cand, device=device)
-        n = cand.shape[0]
-        chunk = min(candidate_chunk, max(n, 1))
-        pad = -n % chunk
-        if pad:
-            cand = torch.cat((cand, cand[:1].expand(pad, -1)))
-        sets.append((cand, n, chunk))
-
-    scene_tile = dataclasses.replace(scene, receivers=rx_all.new_zeros((0, 3)))
+    cand_list = path_candidates if isinstance(path_candidates, (list, tuple)) else [path_candidates]
+    sets = [(torch.as_tensor(cand, device=device), None) for cand in cand_list]
+    walk = _TileWalk(scene.receivers.reshape(-1, 3), rx_chunk, sets, candidate_chunk)
+    scene_tile = dataclasses.replace(scene, receivers=walk.rx.new_zeros((0, 3)))
     if mesh is not None:
         detached = [None if x is None else x.detach() for x in (tx, eta_r, conductivity, thickness)]
         scene_tile, frequency, tx, eta_r, conductivity, thickness = replicate(
             (scene_tile, frequency, *detached), mesh
         )
-
-    def tiles() -> Iterator[tuple[int, torch.Tensor, int, int, int]]:
-        for row, r0 in enumerate(range(0, rx_all.shape[0], rx_chunk)):
-            rx_tile = rx_all[r0 : r0 + rx_chunk]
-            if mesh is not None:
-                rx_tile = shard_along(_pad_rows(rx_tile, mesh.size), mesh)
-            for s, (cand, _, chunk) in enumerate(sets):
-                for c0 in range(0, cand.shape[0], chunk):
-                    yield row, rx_tile, s, c0, c0 + chunk
-
-    return frequency, tx, eta_r, conductivity, thickness, scene_tile, sets, tiles, num_rx, rx_chunk, pad_r
-
-
-def _chunk(sets, s: int, lo: int, hi: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Candidates ``lo:hi`` of set ``s``: their rows, their interaction types (reflections) and which are real."""
-    cand, n, _ = sets[s]
-    part = cand[lo:hi]
-    return part, torch.zeros_like(part, dtype=torch.int32), torch.arange(lo, hi, device=part.device) < n
+    return walk, scene_tile, tx, frequency, eta_r, conductivity, thickness
 
 
 def _streamed_forward(
-    scene_tile, sets, tiles, mesh, tx, frequency, eta_r, conductivity, thickness, num_rx, rx_chunk,
+    walk, scene_tile, mesh, tx, frequency, eta_r, conductivity, thickness,
     megakernel, batch_size, smoothing_factor=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Pass 1: the per-pixel coherent amplitude sum, tile by tile, as (real, imag) ``[num_tx, num_rx]``.
 
-    Where the tiles take the fused kernels, each set's candidates are laid
-    out once (``coverage._tile_plan``; no receiver enters it, so with or
-    without a mesh). On a mesh each rank sums its blocks, and one gather
-    gives every rank the whole.
+    Each set is planned once for its tiles (``coverage._tile_plan``; no
+    receiver enters the layout, so with or without a mesh). On a mesh each
+    rank sums its blocks, and one gather gives every rank the whole.
     """
     rows: list[torch.Tensor] = []  # one complex sum per RX tile; the tiles come row by row
     with torch.no_grad():
-        plans = [
-            _tile_plan(
-                scene_tile.mesh, cand, torch.zeros_like(cand, dtype=torch.int32), n, frequency,
-                eta_r, conductivity, thickness,
-                megakernel=megakernel,
-                smoothing_factor=smoothing_factor,
-                tx_pattern=None,
-                inputs=(tx, frequency, eta_r, conductivity, thickness, scene_tile.mesh.vertices),
+        planned = walk.planned(
+            scene_tile.mesh, tx, frequency, eta_r, conductivity, thickness,
+            megakernel=megakernel,
+            smoothing_factor=smoothing_factor,
+            tx_pattern=None,
+        )
+        for row, rx_tile, s, lo, hi in planned:
+            if mesh is not None:
+                rx_tile = shard_along(_pad_rows(rx_tile, mesh.size), mesh)
+            part = _coverage_tile(
+                scene_tile, tx, rx_tile, s, lo, hi, s.plan, frequency, eta_r, conductivity,
+                thickness, True, megakernel, batch_size, smoothing_factor,
             )
-            for cand, n, _ in sets
-        ]
-        for row, rx_tile, s, lo, hi in tiles():
-            if plans[s] is not None:
-                part = _planned_tile(plans[s], tx, rx_tile, lo, hi, True)
-            else:
-                part = _coverage_tile(
-                    scene_tile, tx, rx_tile, *_chunk(sets, s, lo, hi), frequency, eta_r,
-                    conductivity, thickness, True, megakernel, batch_size, smoothing_factor,
-                )
             if row == len(rows):
                 rows.append(part)
             else:
                 rows[row] = rows[row] + part
         totals = torch.stack(rows)  # [rows, num_tx, tile or block]
         if mesh is not None:
-            totals = _gather(totals, mesh, -1)[..., :rx_chunk]
-        total = totals.transpose(0, 1).reshape(totals.shape[1], -1)[..., :num_rx]
+            totals = _gather(totals, mesh, -1)[..., : walk.rx_chunk]
+        total = totals.transpose(0, 1).reshape(totals.shape[1], -1)[..., : walk.num_rx]
     return total.real.clone(), total.imag.clone()
 
 
@@ -613,15 +548,13 @@ def streamed_placement_loss(
     ulps of a mean near 260 dB takes that mean in float64 on the host. With
     a device ``mesh`` every rank returns the whole loss or map.
     """
-    frequency, tx, eta_r, conductivity, thickness, scene_tile, sets, tiles, num_rx, rx_chunk, _ = (
-        _streamed_setup(
-            scene, frequency, mesh, tx, eta_r, conductivity, thickness,
-            path_candidates, candidate_chunk, rx_chunk,
-        )
+    walk, scene_tile, tx, frequency, eta_r, conductivity, thickness = _streamed_setup(
+        scene, frequency, mesh, tx, eta_r, conductivity, thickness,
+        path_candidates, candidate_chunk, rx_chunk,
     )
     re, im = _streamed_forward(
-        scene_tile, sets, tiles, mesh, tx, frequency, eta_r, conductivity, thickness, num_rx,
-        rx_chunk, megakernel, batch_size, smoothing_factor,
+        walk, scene_tile, mesh, tx, frequency, eta_r, conductivity, thickness,
+        megakernel, batch_size, smoothing_factor,
     )
     if return_db_map:
         return _power_db((re**2 + im**2) / z_0)
@@ -693,17 +626,15 @@ def streamed_placement_step(
     True
     """
     with annotate("step"):
-        frequency, tx, eta_r, conductivity, thickness, scene_tile, sets, tiles, num_rx, rx_chunk, pad_r = (
-            _streamed_setup(
-                scene, frequency, mesh, tx, eta_r, conductivity, thickness,
-                path_candidates, candidate_chunk, rx_chunk,
-            )
+        walk, scene_tile, tx, frequency, eta_r, conductivity, thickness = _streamed_setup(
+            scene, frequency, mesh, tx, eta_r, conductivity, thickness,
+            path_candidates, candidate_chunk, rx_chunk,
         )
         tx, eta_r = tx.detach(), eta_r.detach()
         with annotate("step.pass1"):
             re, im = _streamed_forward(
-                scene_tile, sets, tiles, mesh, tx, frequency, eta_r, conductivity, thickness, num_rx,
-                rx_chunk, megakernel, batch_size, smoothing_factor,
+                walk, scene_tile, mesh, tx, frequency, eta_r, conductivity, thickness,
+                megakernel, batch_size, smoothing_factor,
             )
 
         # Pass 2: the loss and its gradient on the accumulated sums only.
@@ -711,8 +642,8 @@ def streamed_placement_step(
         im.requires_grad_()
         loss = _placement_loss(re, im, target_power)
         g_re, g_im = torch.autograd.grad(loss, (re, im))
-        if pad_r:
-            zeros = g_re.new_zeros((g_re.shape[0], pad_r))
+        if walk.pad_r:
+            zeros = g_re.new_zeros((g_re.shape[0], walk.pad_r))
             g_re = torch.cat((g_re, zeros), dim=-1)
             g_im = torch.cat((g_im, zeros), dim=-1)
 
@@ -720,9 +651,10 @@ def streamed_placement_step(
         with annotate("step.pass3"):
             g_tx = torch.zeros_like(tx)
             g_eta = torch.zeros_like(eta_r)
-            for row, rx_tile, s, lo, hi in tiles():
-                cand, itypes, valid = _chunk(sets, s, lo, hi)
-                sl = slice(row * rx_chunk, (row + 1) * rx_chunk)
+            for row, rx_tile, s, lo, hi in walk:
+                if mesh is not None:
+                    rx_tile = shard_along(_pad_rows(rx_tile, mesh.size), mesh)
+                sl = slice(row * walk.rx_chunk, (row + 1) * walk.rx_chunk)
                 cotangents = (g_re[:, sl], g_im[:, sl])
                 if mesh is not None:  # this rank's block; the padded receivers' cotangent is 0
                     cotangents = tuple(
@@ -731,14 +663,17 @@ def streamed_placement_step(
                     )
                 tx_leaf = tx.clone().requires_grad_()
                 eta_leaf = eta_r.clone().requires_grad_()
-                parts = _tile_amplitude_parts(
-                    scene_tile, tx_leaf, eta_leaf, rx_tile, cand, itypes, valid, frequency,
-                    conductivity, thickness, megakernel, batch_size, smoothing_factor,
+                a = _coverage_tile(
+                    scene_tile, tx_leaf, rx_tile, s, lo, hi, None, frequency, eta_leaf, conductivity,
+                    thickness, True, megakernel, batch_size, smoothing_factor,
                 )
-                # A line-of-sight tile reads no material: its share of g_eta is None.
+                # (real, imag): the backward composes with the loss's gradient with no convention
+                # for complex cotangents in between. A line-of-sight tile reads no material: its
+                # share of g_eta is None.
+                parts = a.real, a.imag
                 with annotate("step.backward"):
                     d_tx, d_eta = torch.autograd.grad(parts, (tx_leaf, eta_leaf), cotangents, allow_unused=True)
-                del parts
+                del a, parts
                 if d_tx is not None:
                     g_tx += d_tx
                 if d_eta is not None:

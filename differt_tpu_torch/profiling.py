@@ -30,9 +30,9 @@ Span               Where                                               Read by
 ``step.pass3``     its pass 3, each tile again and its backward        (parent of pass 3's spans)
 ``step.backward``  each ``torch.autograd.grad`` of pass 3              ``backward.device_ms.step``
 ``tile.prep``      ``coverage._tile_plan``: a candidate set's layout   ``tile.prep_reuse`` (fused tiles per plan)
-                   for the fused tiles, once per set and call
-``tile``           ``coverage._coverage_tile``, ``_planned_tile``      ``tile.glue_ms_per_tile``
-``em``             ``coverage.complex_amplitudes``; a fused tile's     ``em.span_ms_per_tile``, ``tile.glue_*``
+                   for its tiles' kernels, once per set and call
+``tile``           ``coverage._coverage_tile``, every tile             ``tile.glue_ms_per_tile``
+``em``             ``coverage.complex_amplitudes``; a planned tile's   ``em.span_ms_per_tile``, ``tile.glue_*``
                    EM kernel call in its ``tile``
 ``kernel.em``      ``ops/_em.py::em_laid_out``, the launch alone       ``em.fused_pct`` (tiles that hold one)
 ``kernel.trace``   ``ops/_trace.py::launch_trace``, the launch alone   ``trace.span_roofline``, ``tile.glue_*``

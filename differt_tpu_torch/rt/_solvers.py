@@ -67,6 +67,25 @@ def candidate_geometry(
     return path_candidates, triangle_vertices, mirror_vertices, mirror_normals
 
 
+def fused_trace(
+    megakernel: bool | None, device: torch.device, order: int, num_candidates: int, smoothing_factor
+) -> bool:
+    """Whether a trace takes the fused kernel: ``megakernel``, or where it is None, whether the backend
+    resolves to ``"cuda"``, the masks are hard, there are candidates and the order is 1 to the kernel's
+    cap (``ops._trace.MAX_ORDER``; higher orders go to the unfused pipeline)."""
+    if megakernel is not None:
+        return megakernel
+    from ..ops import get_backend
+    from ..ops._trace import MAX_ORDER
+
+    return (
+        get_backend(device) == "cuda"
+        and smoothing_factor is None
+        and 1 <= order <= MAX_ORDER
+        and num_candidates > 0
+    )
+
+
 def kernel_tolerances(
     epsilon: float | None = None, hit_tol: float | None = None, min_len: float | None = None
 ) -> tuple[float, float, float]:
@@ -164,18 +183,7 @@ def trace_geometry(
     if mesh.mask is not None:
         active_rays = mesh.mask[path_candidates].all(dim=-1)
 
-    if megakernel is None:
-        from ..ops import get_backend
-        from ..ops._trace import MAX_ORDER
-
-        # Orders above the kernel's cap go to the unfused pipeline.
-        megakernel = (
-            get_backend(tx_vertices.device) == "cuda"
-            and not smooth
-            and 1 <= order <= MAX_ORDER
-            and num_candidates > 0
-        )
-    if megakernel:
+    if fused_trace(megakernel, tx_vertices.device, order, num_candidates, smoothing_factor):
         if order < 1:
             msg = "The fused trace kernel needs order >= 1."
             raise ValueError(msg)

@@ -228,7 +228,7 @@ def test_power_map_tx_gradient_matches(name: str) -> None:
 
 def test_power_map_without_the_flag_is_unchanged() -> None:
     scene = to_torch_scene(_scene("canyon"))
-    materials = coverage._resolve_materials(scene, torch.tensor(FREQUENCY), None, None, None)
+    materials = coverage.resolve_materials(scene, torch.tensor(FREQUENCY), None, None, None)
     eta_r, conductivity, thickness = materials
     want = coverage.received_power(
         scene.trace_paths(order=1), scene, torch.tensor(FREQUENCY), eta_r=eta_r, conductivity=conductivity, thickness=thickness
@@ -247,7 +247,7 @@ def test_power_map_options_add_their_parts(option: str) -> None:
     scene = to_torch_scene(_scene("canyon"))
     materials = {"eta_r": torch.tensor([5.24]), "conductivity": torch.tensor([0.1])}
     frequency = torch.tensor(FREQUENCY)
-    eta_r, conductivity, thickness = coverage._resolve_materials(scene, frequency, materials["eta_r"], materials["conductivity"], None)
+    eta_r, conductivity, thickness = coverage.resolve_materials(scene, frequency, materials["eta_r"], materials["conductivity"], None)
     a_spec = coverage.complex_amplitudes(
         scene.trace_paths(order=1), scene, frequency, eta_r=eta_r, conductivity=conductivity, thickness=thickness
     )

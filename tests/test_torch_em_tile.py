@@ -178,7 +178,7 @@ def test_the_kernel_wrapper_takes_cuda_tensors_only() -> None:
 
 
 def _box_tile(case: str) -> dict:
-    """_coverage_tile's arguments on a walled box, order 1, a padded chunk."""
+    """_coverage_tile's arguments on a walled box, order 1, one chunk whose last candidate is padding."""
     mesh = Mesh.box(20.0, 10.0, 6.0, with_top=False, device="cpu").set_materials("Concrete")
     tx = torch.tensor([[-5.0, 0.5, 1.0]])
     if case == "grad":
@@ -189,9 +189,10 @@ def _box_tile(case: str) -> dict:
         "scene": scene,
         "tx": tx,
         "rx_tile": scene.receivers.reshape(-1, 3),
-        "cand_chunk": cand,
-        "itype_chunk": torch.zeros_like(cand, dtype=torch.int32),
-        "chunk_valid": torch.arange(cand.shape[0]) < cand.shape[0] - 1,
+        "candidate_set": coverage._CandidateSet(cand, None, cand.shape[0] - 1, cand.shape[0]),
+        "lo": 0,
+        "hi": cand.shape[0],
+        "plan": None,
         "frequency": torch.tensor(FREQUENCY),
         "eta_r": torch.tensor([5.24]),
         "conductivity": torch.tensor([0.1]),
@@ -207,30 +208,68 @@ def _box_tile(case: str) -> dict:
     }
 
 
+def _tile_plan_of(kw: dict):
+    """The plan ``power_map_chunked`` makes for a tile's set and call."""
+    return coverage._tile_plan(
+        kw["scene"].mesh, kw["tx"], kw["rx_tile"], kw["candidate_set"], kw["frequency"], kw["eta_r"],
+        kw["conductivity"], kw["thickness"],
+        megakernel=kw["megakernel"], smoothing_factor=kw["smoothing_factor"], tx_pattern=kw["tx_pattern"],
+    )
+
+
+def _twin_launches(monkeypatch, kw: dict) -> list:
+    """Replace both kernels' launch halves by spies that run their twins on ``kw``'s mesh and materials.
+
+    The trace spy rebuilds each candidate triangle from its laid-out v0, e1
+    and e2 (exact on the box's whole-metre corners). Returns the launches,
+    by kernel name.
+    """
+    from differt_tpu_torch.ops import _trace
+
+    mesh, calls = kw["scene"].mesh, []
+
+    def trace_spy(tx, rx, mirrors, cand_tris, triangle_vertices, active_triangles, *, bvh, **tolerances):
+        calls.append("trace")
+        assert triangle_vertices is None and active_triangles is None and bvh is mesh.bvh
+        v0, e1, e2 = cand_tris.reshape(*cand_tris.shape[:2], 3, 3).unbind(-2)
+        triangles = torch.stack((v0, v0 + e1, v0 + e2), dim=-2)
+        return _trace.trace_specular_reference(
+            tx, rx, mirrors[..., :3], mirrors[..., 3:], triangles, mesh.triangle_vertices, mesh.mask, **tolerances
+        )
+
+    def em_spy(vertices, mask, objects, types, *mesh_inputs, coherent):
+        calls.append("em")
+        return _em.em_tile_sum_reference(
+            vertices, mask, objects, types, mesh, kw["frequency"], eta_r=kw["eta_r"],
+            conductivity=kw["conductivity"], thickness=kw["thickness"], coherent=coherent,
+        )
+
+    monkeypatch.setattr(_trace, "trace_laid_out", trace_spy)
+    monkeypatch.setattr(_em, "em_laid_out", em_spy)
+    return calls
+
+
 @pytest.mark.parametrize("case", ["no_gradient", "grad", "pattern", "float_mask", "cpu"])
 def test_coverage_tile_routing(case, monkeypatch) -> None:
-    """The tile takes the kernel only where no gradient, pattern or confidence needs the plain chain.
+    """The tile takes the kernels only where no gradient, pattern or confidence needs the plain chain.
 
-    On the CPU nothing takes it. For the other cases the CPU tensors pass
-    for the card's (the backend reads "cuda") and the kernel's wrapper is a
-    spy that runs the twin: only the no-gradient tile reaches it, and its
-    sums are the plain chain's.
+    On the CPU no plan is made. For the other cases the CPU tensors pass for
+    the card's (the backend reads "cuda") and the kernels' launch halves are
+    spies that run the twins: only the no-gradient call gets a plan, with
+    both halves, its tile launches each kernel once, and its sums are the
+    plain chain's.
     """
     kw = _box_tile(case)
-    calls = []
     want = coverage._coverage_tile(**kw)  # the plain chain: nothing patched
     if case != "cpu":
         monkeypatch.setattr(ops, "get_backend", lambda device=None: "cuda")
-
-        def spy(*args, **kwargs):
-            calls.append(args[0].shape)
-            return _em.em_tile_sum_reference(*args, **kwargs)
-
-        monkeypatch.setattr(_em, "em_tile_sum", spy)
+    calls = _twin_launches(monkeypatch, kw)
+    kw["plan"] = _tile_plan_of(kw)
+    assert (kw["plan"] is not None) == (case == "no_gradient")
     launches = _em.LAUNCHES
     got = coverage._coverage_tile(**kw)
     assert _em.LAUNCHES == launches
-    assert len(calls) == (1 if case == "no_gradient" else 0)
+    assert calls == (["trace", "em"] if case == "no_gradient" else [])
     assert got.requires_grad == (case == "grad")
     torch.testing.assert_close(got.detach(), want.detach(), rtol=0, atol=0)
     assert bool((got != 0).any())
@@ -238,24 +277,28 @@ def test_coverage_tile_routing(case, monkeypatch) -> None:
 
 def test_coverage_tile_takes_the_plain_chain_when_a_material_or_the_mesh_needs_a_gradient(monkeypatch) -> None:
     monkeypatch.setattr(ops, "get_backend", lambda device=None: "cuda")
-    monkeypatch.setattr(_em, "em_tile_sum", lambda *a, **k: pytest.fail("the kernel was taken"))
     kw = _box_tile("no_gradient")
     kw["eta_r"] = kw["eta_r"].clone().requires_grad_()
+    assert _tile_plan_of(kw) is None
     assert coverage._coverage_tile(**kw).requires_grad
     kw = _box_tile("no_gradient")
     mesh = kw["scene"].mesh
     kw["scene"] = dataclasses.replace(
         kw["scene"], mesh=dataclasses.replace(mesh, vertices=mesh.vertices.clone().requires_grad_())
     )
+    _twin_launches(monkeypatch, kw)
+    monkeypatch.setattr(_em, "em_laid_out", lambda *a, **k: pytest.fail("the kernel was taken"))
+    assert _tile_plan_of(kw) is None
     assert coverage._coverage_tile(**kw).requires_grad
-    with torch.no_grad():  # no gradient can be asked for: the kernel, here its spy's failure
+    with torch.no_grad():  # no gradient can be asked for: a plan, and the kernel, here its spy's failure
+        kw["plan"] = _tile_plan_of(kw)
+        assert kw["plan"] is not None
         with pytest.raises(pytest.fail.Exception):
             coverage._coverage_tile(**kw)
 
 
-def _plan_set(case: str) -> tuple[Mesh, torch.Tensor, torch.Tensor, int, int]:
-    """A walled box's candidate set padded as ``power_map_chunked`` pads it: the mesh, the
-    candidates, their types, how many are real, and the chunk."""
+def _plan_set(case: str) -> tuple[Mesh, coverage._CandidateSet]:
+    """A walled box and a candidate set padded as ``power_map_chunked`` pads it."""
     mesh = Mesh.box(20.0, 10.0, 6.0, with_top=False, device="cpu").set_materials("Concrete")
     if case == "quads":
         mesh = mesh.set_assume_quads()
@@ -265,41 +308,41 @@ def _plan_set(case: str) -> tuple[Mesh, torch.Tensor, torch.Tensor, int, int]:
     cand = generate_path_candidates(mesh.num_primitives, order, device="cpu")
     if mesh.assume_quads:
         cand = 2 * cand
-    n = cand.shape[0]  # 10 (order 1), 90 (order 2), 20 (quads, order 2)
+    # 10 (order 1), 90 (order 2), 20 (quads, order 2) candidates
     chunk = {"order_1": 5, "quads": 10, "padded": 32}.get(case, 30)
-    pad = -n % chunk
-    cand = torch.cat((cand, cand[:1].expand(pad, -1)))
     itypes = torch.zeros_like(cand, dtype=torch.int32)
     itypes[1::4, -1] = 2  # a bounce the chain passes over: its type must reach the kernel
-    return mesh, cand, itypes, n, chunk
+    (candidate_set,) = coverage._TileWalk(torch.zeros(1, 3), 1, [(cand, itypes)], chunk).sets
+    return mesh, candidate_set
 
 
-def _plan(mesh, cand, itypes, n, **kw):
+def _plan(mesh, candidate_set, **kw):
     return coverage._tile_plan(
-        mesh, cand, itypes, n, torch.tensor(FREQUENCY), torch.tensor([5.24]), torch.tensor([0.1]), None,
-        **{"megakernel": None, "smoothing_factor": None, "tx_pattern": None, "inputs": (), **kw},
+        mesh, torch.zeros(1, 3), torch.zeros(2, 3), candidate_set, torch.tensor(FREQUENCY), torch.tensor([5.24]),
+        torch.tensor([0.1]), None, **{"megakernel": None, "smoothing_factor": None, "tx_pattern": None, **kw},
     )
 
 
 @pytest.mark.parametrize("case", ["order_1", "order_2", "quads", "masked", "padded"])
 def test_tile_plan_slices_are_each_chunks_own_layout(case, monkeypatch) -> None:
-    """The plan's slices equal, bit for bit, what the per-chunk route hands the kernels.
+    """The plan's slices equal, bit for bit, what each chunk's own layout hands the kernels.
 
-    Per chunk, the route of ``_coverage_tile`` hands the trace kernel the
-    chunk's ``candidate_geometry`` laid out (mirror vertex and normal side by
-    side; each triangle's v0, v1 - v0, v2 - v0), and the EM kernel its
-    ``candidate_rows`` (int64, int32), the mesh's normals and the material
-    table. The planned tile (its kernels' launch halves replaced by spies)
-    hands those slices on; its mask keeps the trace's own where nothing masks
-    a candidate (no ``&``), and drops the padding and the masked triangles.
+    Per chunk, the trace kernel takes the chunk's ``candidate_geometry``
+    laid out (mirror vertex and normal side by side; each triangle's v0,
+    v1 - v0, v2 - v0), and the EM kernel its ``candidate_rows`` (int64,
+    int32), the mesh's normals and the material table. The planned tile
+    (its kernels' launch halves replaced by spies) hands those slices on;
+    its mask keeps the trace's own where nothing masks a candidate (no
+    ``&``), and drops the padding and the masked triangles.
     """
     from differt_tpu_torch.ops import _trace
     from differt_tpu_torch.rt._solvers import candidate_geometry, candidate_rows, kernel_tolerances
 
     monkeypatch.setattr(ops, "get_backend", lambda device=None: "cuda")
-    mesh, cand, itypes, n, chunk = _plan_set(case)
-    plan = _plan(mesh, cand, itypes, n)
-    assert plan is not None and plan.num_candidates == n
+    mesh, cs = _plan_set(case)
+    cand, itypes, n, chunk = cs.candidates, cs.interaction_types, cs.num_candidates, cs.chunk
+    plan = _plan(mesh, cs)
+    assert plan is not None and plan.mirrors is not None
 
     launched = {}
 
@@ -317,6 +360,7 @@ def test_tile_plan_slices_are_each_chunks_own_layout(case, monkeypatch) -> None:
 
     monkeypatch.setattr(_trace, "trace_laid_out", trace_spy)
     monkeypatch.setattr(_em, "em_laid_out", em_spy)
+    scene = Scene(mesh=mesh)
     tx, rx = torch.tensor([[-5.0, 0.5, 1.0]]), torch.tensor([[3.0, -2.0, 1.5], [6.0, 1.0, 1.5]])
     k = 2 if mesh.assume_quads else 1
     for lo in range(0, cand.shape[0], chunk):
@@ -326,7 +370,10 @@ def test_tile_plan_slices_are_each_chunks_own_layout(case, monkeypatch) -> None:
         want_mirrors = torch.cat((mv, mn), dim=-1)
         want_tris = torch.cat((v0, tv[..., 1, :] - v0, tv[..., 2, :] - v0), dim=-1)
         rows, types = candidate_rows(pc, itypes[lo:hi], k)
-        coverage._planned_tile(plan, tx, rx, lo, hi, True)
+        coverage._coverage_tile(
+            scene, tx, rx, cs, lo, hi, plan, torch.tensor(FREQUENCY), torch.tensor([5.24]), torch.tensor([0.1]),
+            None, True, None,
+        )
 
         mirrors, cand_tris, triangle_vertices, active_triangles, kw = launched["trace"]
         assert torch.equal(mirrors, want_mirrors) and mirrors.is_contiguous()
@@ -355,10 +402,15 @@ def test_tile_plan_slices_are_each_chunks_own_layout(case, monkeypatch) -> None:
         assert not bool(keep.all())
 
 
-@pytest.mark.parametrize("case", ["cpu", "unfused", "smoothed", "pattern", "order_0", "grad", "grad_off"])
+@pytest.mark.parametrize(
+    "case", ["cpu", "unfused", "smoothed", "pattern", "order_0", "grad", "grad_off", "grad_rx"]
+)
 def test_tile_plan_only_where_every_tile_is_fused(case, monkeypatch) -> None:
-    """A plan is made where ``_fused_em`` holds of the call and the trace is fused; else the tiles take the plain route."""
-    mesh, cand, itypes, n, _ = _plan_set("order_1")
+    """A plan is made where ``_fused_em`` holds of the call; its trace half where the trace is fused too.
+
+    Order 0 and ``megakernel=False`` trace unfused: their plan has the EM half alone.
+    """
+    mesh, cs = _plan_set("order_1")
     if case != "cpu":
         monkeypatch.setattr(ops, "get_backend", lambda device=None: "cuda")
     kw = {
@@ -367,9 +419,45 @@ def test_tile_plan_only_where_every_tile_is_fused(case, monkeypatch) -> None:
         "pattern": {"tx_pattern": HWDipolePattern(FREQUENCY, direction=(0.0, 0.0, 1.0), device="cpu")},
     }.get(case, {})
     if case == "order_0":
-        cand, itypes = cand[:, :0], itypes[:, :0]
-    if case.startswith("grad"):
-        kw["inputs"] = (torch.zeros(1, 3, requires_grad=True),)
+        cs = dataclasses.replace(cs, candidates=cs.candidates[:, :0], interaction_types=cs.interaction_types[:, :0])
+    args = [mesh, torch.zeros(1, 3), torch.zeros(2, 3), cs, torch.tensor(FREQUENCY), torch.tensor([5.24]), torch.tensor([0.1]), None]
+    if case.startswith("grad"):  # the TX, or the receivers, can be asked for a gradient
+        args[2 if case == "grad_rx" else 1] = torch.zeros(2 if case == "grad_rx" else 1, 3, requires_grad=True)
+    options = {"megakernel": None, "smoothing_factor": None, "tx_pattern": None, **kw}
     with torch.set_grad_enabled(case != "grad_off"):
-        plan = _plan(mesh, cand, itypes, n, **kw)
-    assert (plan is not None) == (case == "grad_off")
+        plan = coverage._tile_plan(*args, **options)
+    assert (plan is not None) == (case in ("grad_off", "unfused", "order_0"))
+    if plan is not None:
+        assert (plan.mirrors is None) == (case != "grad_off")
+        assert torch.equal(plan.objects, cs.candidates) and torch.equal(plan.types, cs.interaction_types)
+
+
+@pytest.mark.parametrize("case", ["order_0", "unfused"])
+def test_em_only_plan_map_is_the_plain_chains(case, monkeypatch) -> None:
+    """An order-0 or ``megakernel=False`` map with no gradient takes an EM-only plan: the unfused
+    trace per tile, then the EM kernel (its spy runs the twin) on the plan's rows; the map is the
+    plain chain's, bit for bit, once a tile each."""
+    kw = _box_tile("no_gradient")
+    scene = kw["scene"].with_receivers_grid(6, 5, height=1.0)
+    order, megakernel = (0, None) if case == "order_0" else (1, False)
+    options = {
+        "order": order, "megakernel": megakernel, "candidate_chunk": 4, "rx_chunk": 8,
+        "eta_r": kw["eta_r"], "conductivity": kw["conductivity"],  # what the EM spy reads
+    }
+    want = coverage.power_map_chunked(scene, FREQUENCY, **options)  # the plain chain: nothing patched
+    monkeypatch.setattr(ops, "get_backend", lambda device=None: "cuda")
+    calls = _twin_launches(monkeypatch, kw)
+    plans = []
+
+    def plan_spy(*args, **kwargs):
+        plans.append(real_plan(*args, **kwargs))
+        return plans[-1]
+
+    real_plan = coverage._tile_plan
+    monkeypatch.setattr(coverage, "_tile_plan", plan_spy)
+    got = coverage.power_map_chunked(scene, FREQUENCY, **options)
+    assert len(plans) == 1 and plans[0] is not None and plans[0].mirrors is None
+    num_cand = 1 if order == 0 else 3  # chunks: 1 candidate (order 0), 10 in chunks of 4
+    assert calls == ["em"] * (num_cand * 4)  # 30 receivers: 4 tiles of 8
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert float(want.max()) > 0.0

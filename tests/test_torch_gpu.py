@@ -1001,36 +1001,82 @@ def test_streamed_step_pass1_fused_against_plain(monkeypatch) -> None:
         assert float(torch.linalg.vector_norm((change - change_plain).double())) <= 3e-3 * norm, name
 
 
-def _count_plans(monkeypatch, module) -> list:
-    """Spy on ``module._tile_plan``: the plans it made (None where the tiles took the plain route)."""
-    plans, real = [], module._tile_plan
+def _count_plans(monkeypatch) -> list:
+    """Spy on ``coverage._tile_plan``: the plans it made (None where the tiles took the plain chain)."""
+    from differt_tpu_torch import coverage
+
+    plans, real = [], coverage._tile_plan
 
     def spy(*args, **kwargs):
         plans.append(real(*args, **kwargs))
         return plans[-1]
 
-    monkeypatch.setattr(module, "_tile_plan", spy)
+    monkeypatch.setattr(coverage, "_tile_plan", spy)
     return plans
 
 
-def _unplanned(monkeypatch) -> None:
-    """The route without plans: each fused tile lays out its own inputs (``coverage._coverage_tile``)."""
-    from differt_tpu_torch import coverage
-    from differt_tpu_torch.parallel import _sharding
+def _composed_rows(mesh, tx, rx, sets, chunk: int, rx_chunk: int, materials: dict, coherent: bool) -> list:
+    """Each RX tile's sum over every set's chunks, composed chunk by chunk with no plan: each chunk's
+    own geometry through ``trace_specular_cuda`` (order 0: the unfused trace, whose blockage test is
+    the any-hit kernel), its padding masked out, then ``em_tile_sum`` on its own rows. ``rx`` and each
+    set are padded here as the walk pads them."""
+    from differt_tpu_torch.ops import _em
+    from differt_tpu_torch.rt._solvers import candidate_rows, kernel_tolerances, trace_geometry
 
-    for module in (coverage, _sharding):
-        monkeypatch.setattr(module, "_tile_plan", lambda *args, **kwargs: None)
+    epsilon, hit_tol, min_len = kernel_tolerances()
+    k = 2 if mesh.assume_quads else 1
+    rx = torch.cat((rx, rx[:1].expand(-rx.shape[0] % rx_chunk, 3)))
+    rows = []
+    for r0 in range(0, rx.shape[0], rx_chunk):
+        rx_tile, acc = rx[r0 : r0 + rx_chunk], None
+        for cands in sets:
+            n, step = cands.shape[0], min(chunk, cands.shape[0])
+            cands = torch.cat((cands, cands[:1].expand(-n % step, -1)))
+            for lo in range(0, cands.shape[0], step):
+                if cands.shape[1] == 0:
+                    vertices, mask, triangles, _ = trace_geometry(mesh, tx, rx_tile, cands[lo : lo + step], megakernel=False)
+                else:
+                    triangles, tv, mv, mn = candidate_geometry(mesh, cands[lo : lo + step])
+                    vertices, mask = _trace.trace_specular_cuda(
+                        tx.contiguous(), rx_tile.contiguous(), mv, mn, tv, None, mesh.mask, order=cands.shape[1],
+                        epsilon=epsilon, hit_tol=hit_tol, min_len=min_len, bvh=mesh.bvh,
+                    )
+                    vertices, mask = vertices.transpose(1, 2), mask.transpose(1, 2)
+                    if mesh.mask is not None:
+                        mask = mask & mesh.mask[triangles].all(dim=-1)
+                mask = mask & (torch.arange(lo, lo + step, device=rx.device) < n)
+                objects, types = candidate_rows(triangles, None, k)
+                part = _em.em_tile_sum(vertices, mask, objects, types, mesh, coherent=coherent, **materials)
+                acc = part if acc is None else acc + part
+        rows.append(acc)
+    return rows
+
+
+def _composed_map(scene: Scene, cands, chunk: int, rx_chunk: int, coherent: bool = True) -> torch.Tensor:
+    """``power_map_chunked``'s map at 2.4 GHz and the ITU materials, from :func:`_composed_rows`."""
+    from differt_tpu_torch import coverage
+
+    frequency = torch.tensor(2.4e9, device=scene.mesh.device)
+    eta_r, conductivity, thickness = coverage.resolve_materials(scene, frequency, None, None, None)
+    materials = {"frequency": frequency, "eta_r": eta_r, "conductivity": conductivity, "thickness": thickness}
+    rx = scene.receivers.reshape(-1, 3)
+    perm = _rt.morton_perm_points(rx)  # more receivers than a tile: the map orders them
+    rows = _composed_rows(scene.mesh, scene.transmitters.reshape(-1, 3), rx[perm], [cands], chunk, rx_chunk, materials, coherent)
+    total = torch.cat(rows, dim=-1)[..., : rx.shape[0]][..., torch.argsort(perm)]
+    power = torch.abs(total) ** 2 / coverage.z_0 if coherent else total / coverage.z_0
+    return power.reshape(*scene.transmitters.shape[:-1], *scene.receivers.shape[:-1])
 
 
 @pytest.mark.parametrize(
     ("order", "chunk", "masked"),
-    [(1, 512, False), (2, 520, False), (2, 512, False), (2, 520, True)],
-    ids=["order_1", "order_2", "order_2_padded", "order_2_masked"],
+    [(1, 512, False), (2, 520, False), (2, 512, False), (2, 520, True), (0, 512, False)],
+    ids=["order_1", "order_2", "order_2_padded", "order_2_masked", "order_0"],
 )
 def test_power_map_chunked_plan_is_bit_equal_to_each_tile_laying_out_its_own(order, chunk, masked, monkeypatch) -> None:
-    """The map through one plan of the candidate set against the tile-by-tile route
-    (``trace_geometry`` and ``em_tile_sum`` on each chunk): the kernels read the same
-    bytes, so the maps are equal bit for bit; one trace and one EM call a tile either way."""
+    """The map through one plan of the candidate set against each chunk composed on its own in the
+    test (``trace_specular_cuda``, or at order 0 the any-hit test, then ``em_tile_sum``): the kernels
+    read the same bytes, so the maps are equal bit for bit; one trace (none at order 0) and one EM
+    call a tile either way. Order 0 traces unfused: its plan holds the EM half alone."""
     from differt_tpu_torch import coverage
     from differt_tpu_torch.ops import _em
 
@@ -1040,32 +1086,36 @@ def test_power_map_chunked_plan_is_bit_equal_to_each_tile_laying_out_its_own(ord
         mask = torch.ones(scene.mesh.num_triangles, dtype=torch.bool, device=device)
         mask[pairs[7, 1]] = False  # the 78 pairs that meet one of the 40 triangles
         scene = dataclasses.replace(scene, mesh=scene.mesh.set_mask(mask))
-    cands = generate_path_candidates(scene.mesh.num_primitives, 1, device=device) if order == 1 else pairs
+    cands = generate_path_candidates(scene.mesh.num_primitives, order, device=device) if order < 2 else pairs
     kw = {"order": order, "path_candidates": cands, "candidate_chunk": chunk, "rx_chunk": 1_024}
     tiles = -(-cands.shape[0] // chunk) * 4
     assert (cands.shape[0] % chunk != 0) == (order == 1 or chunk == 512)
-    plans = _count_plans(monkeypatch, coverage)
+    plans = _count_plans(monkeypatch)
     counts = (_trace.LAUNCHES, _em.LAUNCHES)
     got = coverage.power_map_chunked(scene, 2.4e9, **kw)
     torch.cuda.synchronize()
     assert len(plans) == 1 and plans[0] is not None
+    assert (plans[0].mirrors is None) == (order == 0)
     assert (plans[0].active_rays is not None) == masked
     if masked:
         assert int((~plans[0].active_rays).sum()) == 78
-    assert (_trace.LAUNCHES - counts[0], _em.LAUNCHES - counts[1]) == (tiles, tiles)
-    _unplanned(monkeypatch)
+    traces = 0 if order == 0 else tiles
+    assert (_trace.LAUNCHES - counts[0], _em.LAUNCHES - counts[1]) == (traces, tiles)
     counts = (_trace.LAUNCHES, _em.LAUNCHES)
-    want = coverage.power_map_chunked(scene, 2.4e9, **kw)
-    assert (_trace.LAUNCHES - counts[0], _em.LAUNCHES - counts[1]) == (tiles, tiles)
+    want = _composed_map(scene, cands, chunk, 1_024)
+    assert (_trace.LAUNCHES - counts[0], _em.LAUNCHES - counts[1]) == (traces, tiles)
     assert float(want.max()) > 0.0
     assert torch.equal(got, want)
 
 
 def test_streamed_placement_loss_plan_is_bit_equal_to_each_tile_laying_out_its_own(monkeypatch) -> None:
-    """Pass 1 through a plan per order's candidate set (the order-1 set padded) against the
-    tile-by-tile route: the same dB map and loss, bit for bit; one trace and one EM call a tile."""
+    """Pass 1 through a plan per order's candidate set (the order-1 set padded) against each chunk
+    composed on its own in the test: the same dB map and loss, bit for bit; one trace and one EM call
+    a tile."""
+    from differt_tpu_torch.coverage import z_0
     from differt_tpu_torch.ops import _em
-    from differt_tpu_torch.parallel import _sharding, streamed_placement_loss
+    from differt_tpu_torch.parallel import streamed_placement_loss
+    from differt_tpu_torch.parallel._sharding import _placement_loss, _power_db
 
     device = cuda_or_skip()
     scene, pairs = _near_city(device, 32)
@@ -1080,14 +1130,19 @@ def test_streamed_placement_loss_plan_is_bit_equal_to_each_tile_laying_out_its_o
     }
     tiles = sum(-(-c.shape[0] // 512) for c in cands) * 2  # 1,024 receivers: 2 tiles
     assert cands[0].shape[0] % 512 != 0
-    plans = _count_plans(monkeypatch, _sharding)
+    plans = _count_plans(monkeypatch)
     counts = (_trace.LAUNCHES, _em.LAUNCHES)
     got = [streamed_placement_loss(scene, 2.4e9, **kw, return_db_map=db) for db in (True, False)]
     torch.cuda.synchronize()
-    assert len(plans) == 4 and all(p is not None for p in plans)  # two sets a call
+    assert len(plans) == 4 and all(p is not None and p.mirrors is not None for p in plans)  # two sets a call
     assert (_trace.LAUNCHES - counts[0], _em.LAUNCHES - counts[1]) == (2 * tiles, 2 * tiles)
-    _unplanned(monkeypatch)
-    want = [streamed_placement_loss(scene, 2.4e9, **kw, return_db_map=db) for db in (True, False)]
+    counts = (_trace.LAUNCHES, _em.LAUNCHES)
+    materials = {"frequency": torch.tensor(2.4e9, device=device), "eta_r": kw["eta_r"], "conductivity": kw["conductivity"]}
+    rows = _composed_rows(scene.mesh, kw["tx"], scene.receivers.reshape(-1, 3), cands, 512, 512, materials, True)
+    assert (_trace.LAUNCHES - counts[0], _em.LAUNCHES - counts[1]) == (tiles, tiles)
+    total = torch.stack(rows).transpose(0, 1).reshape(len(kw["tx"]), -1)[..., : scene.receivers[..., 0].numel()]
+    re, im = total.real.clone(), total.imag.clone()
+    want = [_power_db((re**2 + im**2) / z_0), _placement_loss(re, im, None)]
     assert bool((want[0] > -300.0).any())
     for g, w in zip(got, want):
         assert torch.equal(g, w)

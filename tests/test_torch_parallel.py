@@ -97,9 +97,8 @@ def test_streamed_gradient_matches_unstreamed(megakernel, orders) -> None:
     s = dataclasses.replace(port, transmitters=tx)
     total = sum(
         coverage._coverage_tile(
-            s, tx, port.receivers.reshape(-1, 3), cand, torch.zeros_like(cand, dtype=torch.int32),
-            torch.ones(cand.shape[0], dtype=torch.bool), torch.tensor(FREQUENCY), eta,
-            kw["conductivity"], None, True, False,
+            s, tx, port.receivers.reshape(-1, 3), coverage._CandidateSet(cand, None, len(cand), len(cand)),
+            0, len(cand), None, torch.tensor(FREQUENCY), eta, kw["conductivity"], None, True, False,
         )
         for cand in (kw["path_candidates"] if len(orders) > 1 else [kw["path_candidates"]])
     )
