@@ -1501,9 +1501,12 @@ def visibility_launches(num_vertices: int) -> int:
 
 def run_visibility(city, kernels: dict) -> dict:
     """Phase 14: ``Mesh.triangles_visible_from_vertex`` from the TX and the
-    128 receivers, 1,000,000 lattice rays each, through ``closest.cu``
-    (counted); for the TX and 8 receivers, every ray's hit against the plain
-    closest hit (``t`` bit-equal, a differing index the tie key's winner)."""
+    128 receivers, 1,000,000 lattice rays each, through ``closest.cu``'s
+    launch that makes its rays and marks their hits (counted); for the TX and
+    8 receivers, the same rays in index order (``_dispatch.visibility_rays``)
+    through the ray launch: every ray's hit against the plain closest hit
+    (``t`` bit-equal, a differing index the tie key's winner), and their
+    marks equal to the path's."""
     from differt_tpu_torch.ops import _closest, _dispatch
     from differt_tpu_torch.rt._scan import mark_visible, visibility_frustums
 
@@ -1521,9 +1524,13 @@ def run_visibility(city, kernels: dict) -> dict:
             run_mesh.triangles_visible_from_vertex(rx, num_rays=VIS_RAYS),
         )
 
+    lattice = _closest.LATTICE_LAUNCHES
     (vis_tx, vis_rx), wall, card_ms, counts = counted_call(
         "visibility", both, {"closest": launches, "bvh_builds": 1}
     )
+    if _closest.LATTICE_LAUNCHES - lattice != launches:
+        msg = f"visibility: {_closest.LATTICE_LAUNCHES - lattice} of {launches} launches made their own rays"
+        raise AssertionError(msg)
     kernels["closest"]["launches"] += counts["closest"]
     kernels["closest"]["launches_by_path"]["visibility"] = counts["closest"]
 
@@ -1573,6 +1580,7 @@ def run_visibility(city, kernels: dict) -> dict:
                 "shape": "visibility from the TX: 1,000,000 lattice rays x 20,738 triangles",
                 "kernel_only_ms": cuda_ms(lambda: _closest.launch_closest(o, d, bvh, eps, pos, t_out), 10),
                 "ms": cuda_ms(lambda: _closest.first_triangle_hit_by_ray_cuda(o, d, None, bvh=bvh), 10),
+                "lattice_ms": cuda_ms(lambda: run_mesh.triangles_visible_from_vertex(tx, num_rays=VIS_RAYS), 10),
                 "plain_ms": plain_ms,
                 "bound_ms": bound_ms,
                 "bound_by": bound_by,
@@ -1598,6 +1606,7 @@ def run_visibility(city, kernels: dict) -> dict:
         f" marks_that_differ_from_the_plain_scan's={marks_differ};"
         f" closest at 1,000,000 rays: kernel_only_ms={timing['kernel_only_ms']:.3f}"
         f" wrapper_ms={timing['ms']:.3f} plain_ms={timing['plain_ms']:.1f}"
+        f" visibility_from_the_TX_ms={timing['lattice_ms']:.3f} (rays made and marked in the launch)"
         f" bound_ms={timing['bound_ms']:.5f} ({timing['bound_by']})",
         flush=True,
     )

@@ -2,7 +2,7 @@
 
 - :mod:`._rt`: any-hit (``csrc/anyhit.cu``) and the helpers the BVH is built from.
 - :mod:`._bvh`: the kernels' BVH, built once per mesh (``Mesh.bvh``).
-- :mod:`._closest`: closest-hit (``csrc/closest.cu``).
+- :mod:`._closest`: closest-hit and the visibility's lattice launch (``csrc/closest.cu``).
 - :mod:`._trace`: the fused specular trace (``csrc/trace.cu``).
 - :mod:`._em`: a coverage tile's EM chain and per-pixel sum (``csrc/em.cu``),
   for tiles that need no gradient; CUDA tensors only.

@@ -44,6 +44,7 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "differt_anyhit": (_P,) * 5 + (_I,) * 6 + (_F, _P, _P, _P),
     "differt_closest": (_P,) * 4 + (_I,) * 4 + (_F, _P, _P, _P),
+    "differt_lattice_closest": (_P,) * 3 + (_I,) * 2 + (_P,) * 2 + (_I,) * 3 + (_F, _P, _I, _P, _P, _P),
     "differt_em": (_P,) * 7 + (_I, _P) + (_I,) * 4 + (_L,) * 6 + (_I, _P, _P, _P),
     "differt_em_splits": (_I,) * 3,
     "differt_trace": (_P,) * 6 + (_I,) * 8 + (_F,) * 4 + (_P, _P, _P),

@@ -19,19 +19,23 @@ carries no gradient, and the distance is differentiable through a backward
 that recomputes ``t`` from the frozen hit triangle.
 
 Visibility (:func:`dispatch_triangles_visible_from_vertex`) is a closest
-hit per lattice ray: on the card the rays of several vertices go through
-one closest-hit launch on the mesh's BVH, and the first hits are marked in
-plain PyTorch (a scatter, as in the reference).
+hit per lattice ray: on the card several vertices share one closest-hit
+launch on the mesh's BVH that makes their lattice rays and marks their
+first hits itself (:func:`~._closest.lattice_visibility_cuda`).
 """
 
 import torch
 
-from ..geometry._lattice import fibonacci_lattice
+from ..geometry._lattice import fibonacci_lattice, frustum_terms, lattice_slots
 from ..geometry._vectors import _cross, _dot
-from ..rt._scan import mark_visible, triangles_visible_from_vertex, visibility_frustums
+from ..rt._scan import triangles_visible_from_vertex, visibility_frustums
 from ..rt._triangle import F32_EPS
 from . import _closest
-from ._closest import first_triangle_hit_by_ray_cuda, first_triangle_hit_by_ray_reference
+from ._closest import (
+    first_triangle_hit_by_ray_cuda,
+    first_triangle_hit_by_ray_reference,
+    lattice_visibility_cuda,
+)
 from ._rt import ray_intersect_any_triangle_cuda, ray_intersect_any_triangle_reference
 
 _BACKENDS = ("auto", "cuda", "torch")
@@ -227,7 +231,7 @@ def dispatch_first_triangle_hit_by_ray(
 
 
 VISIBILITY_RAYS = 1 << 25
-"""Most rays of one closest-hit launch of the visibility on the card (whole vertices at a time; about 1.2 GB of rays and results)."""
+"""Most rays of one closest-hit launch of the visibility on the card (whole vertices at a time)."""
 
 
 def visibility_groups(num_vertices: int, num_rays: int) -> list[tuple[int, int]]:
@@ -241,7 +245,12 @@ def visibility_groups(num_vertices: int, num_rays: int) -> list[tuple[int, int]]
 
 
 def visibility_rays(mesh, vertex: torch.Tensor, num_rays: int) -> torch.Tensor:
-    """The lattice directions ``[*batch, num_rays, 3]`` of each vertex's visibility rays."""
+    """The lattice directions ``[*batch, num_rays, 3]`` of each vertex's visibility rays, in index order.
+
+    The card's launch makes the same rays itself, in slot order; tests and
+    ``chip_smoke.py`` hold it against these rays through
+    :func:`~._closest.first_triangle_hit_by_ray_cuda` and ``mark_visible``.
+    """
     frustum = visibility_frustums(vertex, mesh.triangle_vertices, mesh.mask)
     return fibonacci_lattice(num_rays, frustum=frustum)
 
@@ -258,8 +267,9 @@ def dispatch_triangles_visible_from_vertex(
 
     The vertex and the mesh are cut from any graph (the result is
     boolean). On the "cuda" backend the vertices are taken in the groups
-    of :func:`visibility_groups`, one closest-hit launch each on
-    ``mesh.bvh``; otherwise the plain scan of
+    of :func:`visibility_groups`, one launch each on ``mesh.bvh`` that
+    makes the group's lattice rays and marks their hits
+    (:func:`~._closest.lattice_visibility_cuda`); otherwise the plain scan of
     :func:`~differt_tpu_torch.rt._scan.triangles_visible_from_vertex` runs
     (``batch_size`` rays at a time), counted in
     ``ops._closest.REFERENCE_CALLS``.
@@ -281,19 +291,20 @@ def dispatch_triangles_visible_from_vertex(
                 epsilon=epsilon,
             )
         flat = vertex.reshape(-1, 3)
+        tv = mesh.triangle_vertices.contiguous()
         bvh = mesh.bvh
         visible = torch.zeros(
             (flat.shape[0], num_triangles + 1), dtype=torch.bool, device=vertex.device
         )
         for lo, hi in visibility_groups(flat.shape[0], num_rays):
-            directions = visibility_rays(mesh, flat[lo:hi], num_rays)
-            origins = flat[lo:hi, None, :].expand_as(directions)
-            idx, _ = first_triangle_hit_by_ray_cuda(
-                origins.reshape(-1, 3).contiguous(),
-                directions.reshape(-1, 3).contiguous(),
-                None,
+            lattice_visibility_cuda(
+                flat[lo:hi].contiguous(),
+                frustum_terms(visibility_frustums(flat[lo:hi], tv, mesh.mask)),
+                lattice_slots(num_rays, vertex.device),
+                tv,
+                mesh.mask,
+                visible[lo:hi],
                 epsilon=epsilon,
                 bvh=bvh,
             )
-            mark_visible(visible[lo:hi], idx.reshape(hi - lo, num_rays))
         return visible[:, :num_triangles].reshape(*batch, num_triangles)

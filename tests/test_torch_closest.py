@@ -23,7 +23,7 @@ from differt_tpu.geometry import Mesh as JaxMesh
 from differt_tpu.geometry import fibonacci_lattice as jax_lattice
 from differt_tpu.ops._pallas_rt import pallas_first_triangle_hit_by_ray
 from differt_tpu_torch import ops, rt
-from differt_tpu_torch.geometry import Mesh
+from differt_tpu_torch.geometry import Mesh, fibonacci_lattice
 from differt_tpu_torch.interop import mesh_from_numpy
 from differt_tpu_torch.ops import _closest
 from differt_tpu_torch.ops._bvh import build_bvh
@@ -243,3 +243,142 @@ def test_backend_switch(backend) -> None:
         mesh.ray_intersect_any_triangle(o, d)
     with pytest.raises(ValueError, match="Unknown backend"):
         backend("pallas")
+
+
+# The visibility launch's lattice: slot order, the plain twin, the CPU path.
+
+SLOT_SIZES = [1, 2, 31, 5_000, 1_000_000]
+
+
+def _slot_indices(slots: torch.Tensor) -> torch.Tensor:
+    """Each slot's lattice index, read back from its ``step = i / (n - 1)``."""
+    n = slots.shape[0]
+    return torch.round(slots[:, 0] * max(n - 1, 1)).long()
+
+
+@pytest.mark.parametrize("n", SLOT_SIZES)
+def test_lattice_slots_are_a_permutation(n: int) -> None:
+    from differt_tpu_torch.geometry._lattice import _lattice_fractions, lattice_slots
+
+    slots = lattice_slots(n, torch.device("cpu"))
+    assert slots.dtype == torch.float32 and tuple(slots.shape) == (n, 4) and slots.is_contiguous()
+    idx = _slot_indices(slots)
+    assert torch.equal(idx.sort().values, torch.arange(n))
+    # Each row holds its index's terms as fibonacci_lattice computes them.
+    _, step, frac = _lattice_fractions(n, "cpu")
+    assert torch.equal(slots, torch.stack((step, 1.0 - step, frac, 1.0 - frac), dim=-1)[idx])
+    assert lattice_slots(n, torch.device("cpu")) is slots  # built once
+
+
+def test_lattice_slots_reject_an_empty_lattice() -> None:
+    from differt_tpu_torch.geometry._lattice import lattice_slots
+
+    with pytest.raises(ValueError, match="strictly positive"):
+        lattice_slots(0, torch.device("cpu"))
+
+
+def _frustums() -> torch.Tensor:
+    """``[4, 2, 3]``: a full circle, a narrow frustum, a degenerate polar band, and the
+    frustum ``viewing_frustum`` widens from one (a plane seen edge-on)."""
+    from differt_tpu_torch.rt._scan import visibility_frustums
+
+    pi = torch.pi
+    by_hand = torch.tensor(
+        [
+            [[0.0, 0.05, -pi], [0.0, 3.0, pi]],
+            [[0.0, 1.2, 0.3], [0.0, 1.25, 0.35]],
+            [[0.0, 1.0, -1.0], [0.0, 1.0, 1.5]],
+        ]
+    )
+    plane = Mesh.plane(torch.zeros(3), normal=torch.tensor([0.0, 0.0, 1.0]), side_length=4.0, device="cpu")
+    widened = visibility_frustums(torch.tensor([[6.0, 1.0, 0.0]]), plane.triangle_vertices, None)
+    assert float(widened[0, 0, 1]) != float(widened[0, 1, 1])
+    return torch.cat((by_hand, widened))
+
+
+@pytest.mark.parametrize("n", [1, 2, 31, 5_000, 200_000])
+def test_lattice_directions_are_the_lattice_in_slot_order(n: int) -> None:
+    from differt_tpu_torch.geometry._lattice import frustum_terms, lattice_slots
+
+    frusta = _frustums()
+    slots = lattice_slots(n, torch.device("cpu"))
+    got = _closest.lattice_directions(frustum_terms(frusta), slots)
+    want = fibonacci_lattice(n, frustum=frusta)[:, _slot_indices(slots)]
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [5_000, 1_000_000])
+def test_slot_runs_are_compact_patches(n: int) -> None:
+    # Over the whole sphere, each warp's 32 rays in slot order lie within a
+    # few lattice spacings (sqrt(4 pi / n) rad) of the warp's first ray; the
+    # runs near the poles, where a band of cos(polar) is wide in angle, lie
+    # within a few tens. 32 consecutive indices lie on a ring over the whole
+    # azimuth span.
+    from differt_tpu_torch.geometry._lattice import frustum_terms, lattice_slots
+
+    sphere = torch.tensor([[[0.0, 0.0, -torch.pi], [0.0, torch.pi, torch.pi]]])
+    runs = n // 32 * 32
+
+    def radius(directions: torch.Tensor) -> torch.Tensor:
+        d = directions[:runs].reshape(-1, 32, 3).double()
+        cos = (d * d[:, :1]).sum(-1).clamp(-1.0, 1.0)
+        return torch.arccos(cos).amax(dim=-1) / (4.0 * torch.pi / n) ** 0.5
+
+    slots = lattice_slots(n, torch.device("cpu"))
+    coherent = radius(_closest.lattice_directions(frustum_terms(sphere), slots)[0])
+    in_index_order = radius(fibonacci_lattice(n, frustum=sphere)[0])
+    assert float(coherent.median()) < 8.0 and float(coherent.quantile(0.99)) < 40.0
+    assert float(in_index_order.median()) > 4.0 * float(coherent.median())
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_lattice_visibility_on_cpu_is_the_composition(masked: bool) -> None:
+    # The wrapper's CPU path, its plain version: the lattice, the plain
+    # closest hit, the marks; the order of the rays cannot change a mark.
+    from differt_tpu_torch import scenes
+    from differt_tpu_torch.geometry._lattice import frustum_terms, lattice_slots
+    from differt_tpu_torch.rt._scan import mark_visible, visibility_frustums
+
+    mesh = scenes.urban_scene(4, 4, device="cpu").mesh
+    if masked:
+        mesh = mesh.set_mask(torch.from_numpy(_mask(mesh.num_triangles)))
+    tv = mesh.triangle_vertices.contiguous()
+    vertices = torch.tensor([[0.0, 0.0, 40.0], [25.0, 0.0, 1.5], [-50.0, 25.0, 1.5], [60.0, 60.0, 100.0]])
+    n = 3_000
+    frustum = visibility_frustums(vertices, tv, mesh.mask)
+    got = torch.zeros((4, mesh.num_triangles + 1), dtype=torch.bool)
+    launches = (_closest.LAUNCHES, _closest.LATTICE_LAUNCHES)
+    _closest.lattice_visibility_cuda(
+        vertices, frustum_terms(frustum), lattice_slots(n, torch.device("cpu")), tv, mesh.mask, got
+    )
+    assert (_closest.LAUNCHES, _closest.LATTICE_LAUNCHES) == launches
+    d = fibonacci_lattice(n, frustum=frustum)
+    idx, _ = _closest.first_triangle_hit_by_ray_reference(
+        vertices[:, None].expand_as(d).reshape(-1, 3), d.reshape(-1, 3), tv, mesh.mask
+    )
+    want = mark_visible(torch.zeros_like(got), idx.reshape(4, n))
+    assert torch.equal(got, want)
+    assert bool(got[:, :-1].any(dim=-1).all()) and not bool(got[:, :-1].all())
+
+
+def test_visibility_dispatch_card_branch_on_cpu(monkeypatch) -> None:
+    # The card's branch of the dispatch (groups of vertices, their frustum
+    # terms, the slots) run on CPU tensors, where the launch's wrapper takes
+    # its plain version: the marks of the lattice rays in index order.
+    from differt_tpu_torch import scenes
+    from differt_tpu_torch.ops import _dispatch
+    from differt_tpu_torch.rt._scan import mark_visible, visibility_frustums
+
+    mesh = scenes.urban_scene(4, 4, device="cpu").mesh
+    vertices = torch.tensor([[0.0, 0.0, 40.0], [25.0, 0.0, 1.5], [-50.0, 25.0, 1.5]])
+    n = 2_000
+    monkeypatch.setattr(_dispatch, "get_backend", lambda device=None: "cuda")
+    monkeypatch.setattr(_dispatch, "VISIBILITY_RAYS", 2 * n)  # vertices 0-1, then 2
+    calls = _closest.REFERENCE_CALLS
+    got = mesh.triangles_visible_from_vertex(vertices, num_rays=n)
+    assert _closest.REFERENCE_CALLS == calls + 2  # the plain version once a group
+    tv = mesh.triangle_vertices
+    d = fibonacci_lattice(n, frustum=visibility_frustums(vertices, tv, None))
+    idx, _ = _closest.first_triangle_hit_by_ray_reference(vertices[:, None].expand_as(d).reshape(-1, 3), d.reshape(-1, 3), tv)
+    want = mark_visible(torch.zeros((3, mesh.num_triangles + 1), dtype=torch.bool), idx.reshape(3, n))
+    assert torch.equal(got, want[:, :-1])

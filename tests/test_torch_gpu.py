@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from differt_tpu_torch import ops, scenes
-from differt_tpu_torch.geometry import Scene, fibonacci_lattice, generate_path_candidates
+from differt_tpu_torch.geometry import Mesh, Scene, fibonacci_lattice, generate_path_candidates
 from differt_tpu_torch.ops import _build, _bvh, _closest, _rt, _trace
 from differt_tpu_torch.rt import first_triangle_hit_by_ray, ray_intersect_triangle, trace_path_candidates
 from differt_tpu_torch.rt._solvers import candidate_geometry
@@ -588,6 +588,82 @@ def test_visibility_through_the_closest_kernel(masked: bool, torch_backend, monk
     for hits in (idx, scan_idx):  # both winners of each tie ray
         mark_visible(tie_only, torch.where(tie, hits, -1).reshape(10, num_rays))
     assert not bool(((plain != got) & ~tie_only[:, :-1]).any())
+
+
+def _composed_visibility(mesh, vertices: torch.Tensor, num_rays: int) -> torch.Tensor:
+    """Visibility as separate steps on the card: the lattice rays of
+    ``fibonacci_lattice`` (``visibility_rays``), ``closest.cu``'s ray
+    launch on ``mesh.bvh``, then the marks of ``mark_visible``."""
+    from differt_tpu_torch.ops._dispatch import visibility_rays
+    from differt_tpu_torch.rt._scan import mark_visible
+
+    d = visibility_rays(mesh, vertices, num_rays)
+    o = vertices[:, None, :].expand_as(d)
+    idx, _ = _closest.first_triangle_hit_by_ray_cuda(
+        o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous(), None, bvh=mesh.bvh
+    )
+    marks = torch.zeros((vertices.shape[0], mesh.num_triangles + 1), dtype=torch.bool, device=vertices.device)
+    return mark_visible(marks, idx.reshape(vertices.shape[0], num_rays))[:, :-1]
+
+
+def _visibility_case(name: str, device):
+    """A mesh and the vertices that look at it."""
+    if name == "box_inside":
+        box = Mesh.box(10.0, 10.0, 10.0, with_top=True, device=device)
+        return box, torch.tensor([[0.0, 0.0, 0.0], [1.0, -2.0, 3.0], [-4.0, 4.0, -4.5]], device=device)
+    scene = _street_scene(device)
+    mesh = scene.mesh
+    if name == "street_masked":
+        mesh = mesh.set_mask(torch.from_numpy(triangle_mask(mesh.num_triangles, 41)).to(device))
+    return mesh, torch.cat((scene.transmitters, scene.receivers.reshape(-1, 3)))
+
+
+@pytest.mark.parametrize("num_rays", [1, 2, 1_000, 50_000])
+@pytest.mark.parametrize("case", ["street", "street_masked", "box_inside"])
+def test_lattice_visibility_is_the_composition(case: str, num_rays: int) -> None:
+    from differt_tpu_torch.ops._dispatch import visibility_groups
+
+    device = cuda_or_skip()
+    mesh, vertices = _visibility_case(case, device)
+    groups = len(visibility_groups(vertices.shape[0], num_rays))
+    launches = (_closest.LAUNCHES, _closest.LATTICE_LAUNCHES, _closest.REFERENCE_CALLS)
+    got = mesh.triangles_visible_from_vertex(vertices, num_rays=num_rays)
+    torch.cuda.synchronize()
+    now = (_closest.LAUNCHES, _closest.LATTICE_LAUNCHES, _closest.REFERENCE_CALLS)
+    assert tuple(b - a for a, b in zip(launches, now)) == (groups, groups, 0)
+    assert torch.equal(got, _composed_visibility(mesh, vertices, num_rays))
+    if num_rays >= 1_000:
+        assert bool(got.any(dim=-1).all())
+    if case == "box_inside" and num_rays >= 1_000:
+        assert bool(got.all())  # from inside a closed box, every face
+
+
+def test_lattice_visibility_over_two_groups(monkeypatch) -> None:
+    from differt_tpu_torch.ops import _dispatch
+
+    device = cuda_or_skip()
+    mesh, vertices = _visibility_case("street", device)
+    num_rays = 20_000
+    monkeypatch.setattr(_dispatch, "VISIBILITY_RAYS", 6 * num_rays)  # vertices 0-5, then 6-9
+    assert _dispatch.visibility_groups(vertices.shape[0], num_rays) == [(0, 6), (6, 10)]
+    launches = (_closest.LAUNCHES, _closest.LATTICE_LAUNCHES)
+    got = mesh.triangles_visible_from_vertex(vertices, num_rays=num_rays)
+    assert (_closest.LAUNCHES, _closest.LATTICE_LAUNCHES) == (launches[0] + 2, launches[1] + 2)
+    assert torch.equal(got, _composed_visibility(mesh, vertices, num_rays))
+
+
+def test_lattice_visibility_on_the_city() -> None:
+    # urban_scene(24, 24), the hybrid cell's city: its TX and 8 receivers on
+    # the street centrelines, 1,000,000 rays each (9 M rays, one launch).
+    device = cuda_or_skip()
+    mesh = scenes.urban_scene(24, 24, device=device).mesh
+    rx = [[50.0 * x, 50.0 * y, 1.5] for x, y in ((-4, -2), (-2, 1), (0, 0), (1, -3), (2, 2), (3, -1), (4, 3), (-3, 4))]
+    vertices = torch.tensor([[0.0, 0.0, 40.0], *rx], device=device)
+    launches = (_closest.LAUNCHES, _closest.LATTICE_LAUNCHES)
+    got = mesh.triangles_visible_from_vertex(vertices, num_rays=1_000_000)
+    assert (_closest.LAUNCHES, _closest.LATTICE_LAUNCHES) == (launches[0] + 1, launches[1] + 1)
+    assert torch.equal(got, _composed_visibility(mesh, vertices, 1_000_000))
+    assert bool(got.any(dim=-1).all()) and not bool(got.all(dim=-1).any())
 
 
 def test_native_dfs_builds_and_fills_card_tensors() -> None:
